@@ -53,23 +53,24 @@ CFG_PAL = dataclasses.replace(
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
 
-# Full-resolution flagship golden (VERDICT r3 weak #7): the bench scene
-# at the bench's exact 1920x1080 default config and camera — small
-# frames can hide tile-boundary and cap-floor bugs (the sparse-worklist
-# block floors and the 128-px tile economics only engage at scale). CPU
-# render is ~90 s, so it lives in its own test module
-# (tests/test_golden_hd.py) rather than the parametrised small-golden
-# sweep. JAX raster path on CPU (config auto); the Pallas kernel is
-# pinned to the same images by the small Pallas goldens above —
-# interpret mode at 2M px is impractical.
+# Full-resolution flagship golden: the bench scene at the bench's exact
+# 1920x1080 default config and camera — small frames can hide
+# tile-boundary and cap-floor bugs (the sparse-worklist block floors and
+# the 128-px tile economics only engage at scale). chip_smoke.py renders
+# it through the default GPU path (CFG_HD: the raster kernel); the CPU
+# test (tests/test_golden_hd.py) and regeneration use the XLA raster at
+# 32x8 tiles (CFG_HD_CPU), whose per-tile bins hold the busiest tile of
+# the glass dragon (2665 triangles; at 128x8 it is 5456 and every tile
+# of the vmapped loop pays that many trips). The raster is exact, so
+# the tile shape does not change the image.
 CFG_HD = RenderConfig(width=1920, height=1080)
+CFG_HD_CPU = dataclasses.replace(CFG_HD, tile_w=32, max_tris_per_tile=4096)
 
 
-def render_hd_golden() -> np.ndarray:
-    """The bench dragon_attenuation frame (bench.py camera/lights/config)
-    at full 1920x1080 -> sRGB [1080, 1920, 3] float."""
-    import jax
-
+def hd_golden_inputs():
+    """(config, scene, dl, flags, params, lights) of the full-resolution
+    golden: the bench dragon_attenuation frame (bench.py camera, lights
+    and config) at 1920x1080."""
     scene, dl, flags = build_dragon_scene(
         roughness_override=0.25
     ).finish_bundle()
@@ -82,12 +83,21 @@ def render_hd_golden() -> np.ndarray:
         point_light([0.0, 0.8, 0.0], [1.0, 0.0, 0.0], 5.0),
         point_light([8.0, 0.8, 0.0], [0.0, 1.0, 0.0], 10.0),
     ])
-    ldr = np.asarray(
-        jax.jit(partial(render_frame, config=CFG_HD, flags=flags))(
-            scene, dl, params, lights
-        )
-    )
-    return linear_to_srgb(ldr)
+    return CFG_HD, scene, dl, flags, params, lights
+
+
+def render_hd_golden(config: RenderConfig = CFG_HD_CPU) -> np.ndarray:
+    """The full-resolution golden frame -> sRGB [1080, 1920, 3] float.
+    Fails if the frame lost work to a capacity overflow."""
+    import jax
+
+    _, scene, dl, flags, params, lights = hd_golden_inputs()
+    ldr, diag = jax.jit(partial(
+        render_frame, config=config, flags=flags, return_diagnostics=True
+    ))(scene, dl, params, lights)
+    host = type(diag)(*[int(v) if hasattr(v, "shape") else v for v in diag])
+    assert not host.overflowed(), f"HD golden frame overflowed: {host}"
+    return linear_to_srgb(np.asarray(ldr))
 
 
 def _dragon():

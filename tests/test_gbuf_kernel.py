@@ -159,54 +159,3 @@ def test_gbuf_kernel_uv_channels_off():
         )
     for field in ["uv", "duv_dx", "duv_dy", "dpos_dx", "dpos_dy"]:
         assert not np.asarray(getattr(g_nu, field)).any(), field
-
-
-def test_paired_payload_rows_bit_exact():
-    """TRTPU_PAYLOAD_PAIRED gathers record PAIRS from a flat [ceil(T/2),
-    128] table and half-selects — the packed stream must be bit-identical
-    to the plain per-record gather (it is a layout change only)."""
-    import transmission_renderer_tpu.ops.raster_pallas_gbuf as rg
-
-    rng = np.random.default_rng(11)
-    pv = perspective_matrix_reversed(W, H) @ look_at_rh(
-        (0.0, 1.0, 5.0), (0.0, 1.0, 0.0), (0, 1, 0)
-    )
-    n_v = 50
-    pos = rng.uniform(-2, 2, (n_v, 3)).astype(np.float32)
-    nrm = rng.normal(size=(n_v, 3)).astype(np.float32)
-    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
-    uv = rng.uniform(0, 1, (n_v, 2)).astype(np.float32)
-    # odd triangle count exercises the pair-padding tail
-    tris = rng.integers(0, n_v, (37, 3))
-    tris = tris[
-        (tris[:, 0] != tris[:, 1])
-        & (tris[:, 1] != tris[:, 2])
-        & (tris[:, 0] != tris[:, 2])
-    ].astype(np.int32)
-    assert len(tris) % 2 == 1, "want an odd record count for the tail"
-    mat = rng.integers(0, 5, len(tris)).astype(np.int32)
-    scale = rng.uniform(0.5, 2.0, len(tris)).astype(np.float32)
-
-    ph = np.concatenate([pos, np.ones((n_v, 1), np.float32)], -1)
-    clip = jnp.asarray((ph @ pv.T).astype(np.float32))
-    setup = setup_triangles(
-        clip, jnp.asarray(tris), jnp.ones(len(tris), bool), W, H, TILE_W, TILE_H
-    )
-    bins = bin_triangles(setup, W // TILE_W, H // TILE_H, 16, 64, 16,
-                         materialize=True)
-    records = pack_gbuf_payload(
-        setup, jnp.asarray(tris), jnp.asarray(mat), jnp.asarray(scale),
-        jnp.asarray(pos), jnp.asarray(nrm), jnp.asarray(uv),
-    )
-
-    saved = rg.PAYLOAD_PAIRED
-    try:
-        rg.PAYLOAD_PAIRED = False
-        plain_sorted, plain_big = gather_gbuf_payload(records, bins)
-        rg.PAYLOAD_PAIRED = True
-        pair_sorted, pair_big = gather_gbuf_payload(records, bins)
-    finally:
-        rg.PAYLOAD_PAIRED = saved
-
-    np.testing.assert_array_equal(np.asarray(plain_sorted), np.asarray(pair_sorted))
-    np.testing.assert_array_equal(np.asarray(plain_big), np.asarray(pair_big))

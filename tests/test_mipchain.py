@@ -104,20 +104,21 @@ def test_refraction_level_set_derivation():
     assert ls[0] <= 1 and ls[-1] >= 4 and ls == tuple(range(ls[0], ls[-1] + 1))
 
 
-def test_planar_downsample_chain_bit_exact(monkeypatch):
-    # TRTPU_PLANAR_PYR slices channels into planes before box-filtering;
-    # every output element is the same adds in the same order, so the
-    # whole pyramid must be BIT-identical to the interleaved chain.
+def test_planar_downsample_chain_bit_exact():
+    # the pyramid's downsample chain runs per channel plane; every output
+    # element is the same adds in the same order as the interleaved
+    # [H, W, 3] chain, so every level must be BIT-identical to it
     import transmission_renderer_tpu.ops.mipchain as mip
 
     rng = np.random.default_rng(7)
-    img = jnp.asarray(rng.standard_normal((37, 53, 3)).astype(np.float32))
-    base = mip.build_pyramid(img)
-    monkeypatch.setattr(mip, "PLANAR", True)
-    planar = mip.build_pyramid(img)
-    assert base.offsets == planar.offsets
-    for a, b in zip(base.level_quads, planar.level_quads):
-        assert np.array_equal(np.asarray(a), np.asarray(b))
+    inter = jnp.asarray(rng.standard_normal((37, 53, 3)).astype(np.float32))
+    planes = [inter[..., c] for c in range(3)]
+    for _ in range(5):
+        inter = mip._downsample2x(inter)
+        planes = [mip._downsample2x_plane_matmul(p) for p in planes]
+        assert np.array_equal(
+            np.asarray(inter), np.stack([np.asarray(p) for p in planes], -1)
+        )
 
 
 def test_rows_form_levels_bit_exact(monkeypatch):
@@ -191,7 +192,7 @@ def test_wide_level_set_two_tap_bit_exact():
 
 
 def test_mxu_downsample_bit_exact():
-    """The MXU 0/1-matrix downsample == the explicit-adds oracle, bit
+    """The 0/1-matrix matmul downsample == the explicit-adds oracle, bit
     for bit (CPU: two nonzero exact products per output, same
     (a+b)+(c+d) association), including odd-edge drops."""
     import transmission_renderer_tpu.ops.mipchain as mc
@@ -200,7 +201,7 @@ def test_mxu_downsample_bit_exact():
     for h, w in ((96, 160), (97, 161), (2, 2), (3, 5), (1, 8), (8, 1)):
         img = rng.uniform(-4, 4, (h, w)).astype(np.float32)
         a = np.asarray(mc._downsample2x(jnp.asarray(img)))
-        b = np.asarray(mc._downsample2x_plane_mxu(jnp.asarray(img)))
+        b = np.asarray(mc._downsample2x_plane_matmul(jnp.asarray(img)))
         np.testing.assert_array_equal(a, b)
 
 

@@ -1,5 +1,6 @@
-"""Pallas raster kernel vs the pure-JAX reference rasteriser
-(interpret mode on CPU — SURVEY.md §4b kernel-vs-lax strategy)."""
+"""Triton raster kernel (visibility variant) vs the pure-JAX reference
+rasteriser (interpret mode on CPU — SURVEY.md §4b kernel-vs-lax
+strategy)."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -10,10 +11,10 @@ from transmission_renderer_tpu.ops.raster import (
     rasterize,
     setup_triangles,
 )
-from transmission_renderer_tpu.ops.raster_pallas import (
+from transmission_renderer_tpu.ops.raster_pallas_gbuf import (
     TILE_H,
     TILE_W,
-    rasterize_pallas,
+    rasterize_visibility_pallas,
 )
 from transmission_renderer_tpu.scene.camera import look_at_rh, perspective_matrix_reversed
 
@@ -34,7 +35,7 @@ def _both(clip, tris, init_depth=None):
     ref = rasterize(
         setup, bins, W, H, TILE_W, TILE_H, init_depth=init_depth
     )
-    got = rasterize_pallas(
+    got = rasterize_visibility_pallas(
         setup, bins, W, H, init_depth=init_depth, interpret=True
     )
     return ref, got

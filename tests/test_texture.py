@@ -230,9 +230,8 @@ def test_fused_trilinear_matches_bundled(monkeypatch):
 
 
 def test_frame_ab_knobs_change_layout(monkeypatch):
-    """tools/frame_ab.py mutates layout module globals; the builders must
-    actually read them at build time (a frozen import would silently A/B
-    the same layout)."""
+    """The atlas builder reads the layout module globals at build time (a
+    frozen import would silently ignore an override)."""
     import transmission_renderer_tpu.scene.textures as tx
 
     img = np.full((16, 16, 4), 128, np.uint8)

@@ -1,5 +1,4 @@
-"""Traversal-cost decay of the refit-only BVH under sustained rotation
-(VERDICT r2 #10 / docs/PERFORMANCE.md).
+"""Traversal-cost decay of the refit-only BVH under sustained rotation.
 
 The reference builds one BLAS per primitive + an instance TLAS and
 refits only the TLAS per frame (src/acceleration_structures.rs:6-267);
@@ -19,9 +18,7 @@ import sys
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, _ROOT)
 
-from transmission_renderer_tpu.utils.platform import force_cpu
-
-force_cpu()
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 import numpy as np  # noqa: E402
 import jax  # noqa: E402

@@ -10,7 +10,6 @@ Default probes: 3:4 (shipped), 3:2, 2:4, 2:2, 1:4
 import os
 import sys
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/trtpu_jit_cache")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
@@ -22,6 +21,9 @@ def main():
 
     import jax
 
+    from transmission_renderer_tpu.utils.platform import init_compile_cache
+
+    init_compile_cache()
     from transmission_renderer_tpu.config import RenderConfig
     from transmission_renderer_tpu.models import build_stress_scene
     from transmission_renderer_tpu.pbr.lights import pack_lights, point_light

@@ -12,9 +12,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from transmission_renderer_tpu.utils.platform import force_cpu  # noqa: E402
-
-force_cpu()
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 import dataclasses  # noqa: E402
 from functools import partial  # noqa: E402
@@ -41,6 +39,9 @@ from transmission_renderer_tpu.pbr.lights import (  # noqa: E402
 
 
 def main():
+    from transmission_renderer_tpu.utils.platform import init_compile_cache
+
+    init_compile_cache()
     size = sys.argv[1] if len(sys.argv) > 1 else "640x360"
     w, h = (int(x) for x in size.split("x"))
     cfg = RenderConfig(width=w, height=h, opaque_block_cap_frac=1.0)

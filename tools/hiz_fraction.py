@@ -7,11 +7,7 @@ farthest OPAQUE depth (reversed-Z min over the tile's pixels) — the
 record then wins no pixel over the opaque init depth.
 
 This decides whether an XLA-side stream filter (compact the class-1
-runs before the kernel, ~1-2 ms fixed cost) is worth building: the
-in-kernel variants are measured dead ends (r5: per-record scalar
-`pl.when` alone took the dragon's transmission raster 13.7 -> 21.2 ms,
-the win-any variant 36.1 ms; see docs/PERFORMANCE.md's two-phase
-negative result for the r3 vector variant).
+runs before the kernel) is worth building.
 
 Usage: python tools/hiz_fraction.py [dragon|stress] [width height]
 Runs on CPU (forced) — fractions are geometry properties, resolution
@@ -20,15 +16,13 @@ only mildly changes them.
 
 from __future__ import annotations
 
+import os
 import sys
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
-import numpy as np
-
-from transmission_renderer_tpu.utils.platform import force_cpu
-
-force_cpu()
+import numpy as np  # noqa: E402
 
 
 def main():

@@ -20,9 +20,7 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, _ROOT)
 sys.path.insert(0, os.path.join(_ROOT, "tests"))
 
-from transmission_renderer_tpu.utils.platform import force_cpu
-
-force_cpu()
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 import numpy as np  # noqa: E402
 import jax  # noqa: E402
@@ -30,6 +28,9 @@ from functools import partial  # noqa: E402
 
 
 def main():
+    from transmission_renderer_tpu.utils.platform import init_compile_cache
+
+    init_compile_cache()
     from golden_defs import CFG, GOLDENS, _lights, _rig
     from transmission_renderer_tpu.pbr.tonemap import (
         LottesParams,

@@ -1,19 +1,23 @@
 """In-frame per-pass device timing from a profiler trace.
 
 The reference wraps every pass in Tracy GPU timestamp zones and collects
-them per frame (src/profiling.rs:101-131); the TPU analogue captures ONE
-profiled frame (jax.profiler trace) and aggregates XLA op device time by
-the `pass_scope` names baked into op metadata (jax.named_scope →
-HLO op_name paths). Unlike tools/stage_bench.py (isolated-jit stages,
-whose sums overestimate the fused frame), these numbers come from the
-REAL fused frame's device trace and sum to ~the measured frame time.
+them per frame (src/profiling.rs:101-131); here ONE profiled frame
+(jax.profiler trace) is captured and device kernel time is summed by the
+`pass_scope` names baked into op metadata (jax.named_scope -> HLO
+op_name paths). The numbers come from the REAL fused frame's device
+trace and sum to ~the measured frame time when the device is busy.
+
+On a GPU the device plane (``/device:GPU:N``) holds one line per CUDA
+stream; each kernel event carries the HLO instruction that launched it
+(its name or an ``hlo_op`` stat), which the compiled module's text maps
+to its scope.
 
 Usage:
     from tools.pass_timing import profile_pass_times
-    table = profile_pass_times(lambda: run_one_frame())
-    # {'shade_opaque': 43.1, ..., '<unattributed>': 8.2, '<total>': 97.0}
+    table = profile_pass_times(lambda: run_one_frame(), hlo_text=hlo)
+    # {'shade_opaque': 4.1, ..., '<unattributed>': 0.2, '<total>': 9.7}
 
-Ops whose metadata carries no scope (XLA-fused across scopes, or outside
+Kernels whose metadata carries no scope (fused across scopes, or outside
 any pass_scope) land in '<unattributed>'.
 """
 
@@ -31,7 +35,6 @@ PASS_SCOPES = (
     "mat_tap",
     "mat_normal",
     "material_taps",
-    "shade_kernel",
     "cluster_fetch",
     "brdf_sun",
     "brdf_slots",
@@ -70,9 +73,10 @@ def _attribute(text: str, scopes) -> str | None:
 def build_scope_map(hlo_text: str, scopes=PASS_SCOPES) -> dict:
     """Compiled-HLO text -> {instruction name: scope}.
 
-    TPU trace events are named after HLO instructions (fusion.123 etc.)
-    whose metadata op_name carries the jax.named_scope path — the only
-    place the pass structure survives compilation."""
+    Device kernels are named after the HLO instructions that launch them
+    (``fusion.123``; on a GPU the kernel is ``fusion_123``), whose
+    metadata op_name carries the jax.named_scope path — the only place
+    the pass structure survives compilation. Both spellings are keys."""
     import re
 
     out = {}
@@ -82,7 +86,49 @@ def build_scope_map(hlo_text: str, scopes=PASS_SCOPES) -> dict:
         scope = _attribute(op_name, scopes)
         if scope:
             out[name] = scope
+            out.setdefault(name.replace(".", "_"), scope)
     return out
+
+
+def _is_library_kernel(name: str) -> bool:
+    """cuBLAS / CUTLASS kernels, named after the library routine rather
+    than the HLO instruction that called them."""
+    return "gemm" in name or "cutlass" in name or name.startswith("void ")
+
+
+def _kernel_lines(data):
+    """The trace lines that hold one event per device kernel: on a GPU
+    plane the per-stream lines (an ``XLA Ops`` line, where the profiler
+    derives one, replaces them — the two would double-count); on the CPU
+    the XLA client lines (``tf_...`` under /host:CPU)."""
+    out = []
+    for plane in data.planes:
+        lines = list(plane.lines)
+        if plane.name.startswith("/device:"):
+            ops = [ln for ln in lines if ln.name == "XLA Ops"]
+            out += ops or [
+                ln for ln in lines if (ln.name or "").startswith("Stream")
+            ]
+        else:
+            out += [ln for ln in lines if (ln.name or "").startswith("tf_")]
+    return out
+
+
+def busy_and_span_ms(intervals) -> tuple:
+    """(union length, first start to last end) in ms of [start, end)
+    nanosecond intervals, which may overlap (concurrent streams)."""
+    busy, end = 0, None
+    for lo, hi in sorted(intervals):
+        if end is None or lo > end:
+            busy += hi - lo
+            end = hi
+        elif hi > end:
+            busy += hi - end
+            end = hi
+    if not intervals:
+        return 0.0, 0.0
+    span = max(hi for _, hi in intervals) - min(lo for lo, _ in intervals)
+    return busy / 1e6, span / 1e6
 
 
 def collect_pass_times(
@@ -92,8 +138,12 @@ def collect_pass_times(
 
     ``scope_map`` (from build_scope_map) resolves HLO instruction names;
     string stats / event names are also scanned. Includes
-    '<unattributed>' (device ops without a recognised scope) and
-    '<total>' (all device op time)."""
+    '<unattributed>' (device ops without a recognised scope),
+    '<inherited>' (library kernels given their stream neighbour's scope,
+    already inside the per-scope sums), '<total>' (all device op time),
+    '<busy>' (the union of the ops' intervals: streams that overlap count
+    once) and '<span>' (first op start to last op end; span - busy is
+    the device's idle time inside the traced work)."""
     import re
 
     from jax.profiler import ProfileData
@@ -107,60 +157,56 @@ def collect_pass_times(
     data = ProfileData.from_file(paths[-1])
     scope_map = scope_map or {}
 
-    # TPU 'XLA Ops' event names are the FULL instruction text
-    # ('%fusion.3 = f32[...] fusion(...), calls=...') — the instruction
-    # NAME must be parsed out to key into scope_map (the metadata
-    # op_name does not survive into the event text).
+    # event names may be the FULL instruction text ('%fusion.3 =
+    # f32[...] fusion(...)') — parse the instruction NAME out to key
+    # into scope_map
     instr_pat = re.compile(r"^%?([\w.\-]+)\s*=")
 
     sums = {s: 0.0 for s in scopes}
     unattributed = 0.0
+    inherited = 0.0
     total = 0.0
     unattr_top = {}
-    for plane in data.planes:
-        name = plane.name
-        is_device = (
-            "TPU" in name or "GPU" in name or "device" in name
-        )
-        for line in plane.lines:
-            lname = line.name or ""
-            if is_device:
-                # ONLY the 'XLA Ops' per-op track: 'XLA Modules', 'Steps',
-                # 'Async XLA Ops' (DMAs already inside op spans) and
-                # 'TC Overlay' overlap it and would double-count.
-                if lname != "XLA Ops":
-                    continue
-            elif not lname.startswith("tf_"):
-                # on CPU the XLA client line lives under /host:CPU as
-                # tf_XLAPjRt...; host python lines are excluded
-                continue
-            for ev in line.events:
-                dur = ev.duration_ns / 1e6
-                ev_name = ev.name or ""
-                texts = [ev_name.lstrip("%")]
-                m = instr_pat.match(ev_name)
-                if m:
-                    texts.insert(0, m.group(1))
-                try:
-                    for k, v in ev.stats:
-                        if isinstance(v, str):
-                            texts.append(v.lstrip("%"))
-                except Exception:
-                    pass
-                scope = None
-                for t in texts:
-                    scope = scope_map.get(t) or _attribute(t, scopes)
-                    if scope:
-                        break
-                total += dur
+    intervals = []
+    for line in _kernel_lines(data):
+        prev = None  # scope of the previous kernel on this stream
+        for ev in sorted(line.events, key=lambda e: e.start_ns):
+            intervals.append((ev.start_ns, ev.start_ns + ev.duration_ns))
+            dur = ev.duration_ns / 1e6
+            ev_name = ev.name or ""
+            texts = [ev_name.lstrip("%")]
+            m = instr_pat.match(ev_name)
+            if m:
+                texts.insert(0, m.group(1))
+            try:
+                for k, v in ev.stats:
+                    if isinstance(v, str):
+                        texts.append(v.lstrip("%"))
+            except Exception:
+                pass
+            scope = None
+            for t in texts:
+                scope = scope_map.get(t) or _attribute(t, scopes)
                 if scope:
-                    sums[scope] += dur
-                else:
-                    unattributed += dur
-                    key = texts[0][:60]
-                    unattr_top[key] = unattr_top.get(key, 0.0) + dur
+                    break
+            if scope is None and prev and _is_library_kernel(ev_name):
+                # a library kernel carries no HLO name: it takes the pass
+                # of the kernel before it on its stream (its operand's
+                # producer, as a rule); counted apart in '<inherited>'
+                scope = prev
+                inherited += dur
+            total += dur
+            if scope:
+                sums[scope] += dur
+                prev = scope
+            else:
+                unattributed += dur
+                key = texts[0][:60]
+                unattr_top[key] = unattr_top.get(key, 0.0) + dur
     sums["<unattributed>"] = unattributed
+    sums["<inherited>"] = inherited
     sums["<total>"] = total
+    sums["<busy>"], sums["<span>"] = busy_and_span_ms(intervals)
     sums["<unattributed_top>"] = dict(
         sorted(unattr_top.items(), key=lambda kv: -kv[1])[:8]
     )
@@ -177,7 +223,7 @@ def profile_pass_times(
     import jax
 
     scope_map = build_scope_map(hlo_text, scopes) if hlo_text else None
-    with tempfile.TemporaryDirectory(prefix="trtpu_trace_") as d:
+    with tempfile.TemporaryDirectory(prefix="pass_trace_") as d:
         jax.profiler.start_trace(d)
         try:
             run_frame()
@@ -192,7 +238,10 @@ def format_table(sums: dict) -> str:
         if sums.get(s):
             lines.append(f"  {s:<26} {sums[s]:8.2f} ms")
     lines.append(f"  {'<unattributed>':<26} {sums.get('<unattributed>', 0.0):8.2f} ms")
+    lines.append(f"  {'<inherited, in the above>':<26} {sums.get('<inherited>', 0.0):8.2f} ms")
     lines.append(f"  {'<total device>':<26} {sums.get('<total>', 0.0):8.2f} ms")
+    lines.append(f"  {'<busy (union)>':<26} {sums.get('<busy>', 0.0):8.2f} ms")
+    lines.append(f"  {'<span>':<26} {sums.get('<span>', 0.0):8.2f} ms")
     top = sums.get("<unattributed_top>") or {}
     for k, v in top.items():
         if v >= 1.0:  # only name the unattributed ops that matter (>=1 ms)

@@ -1,4 +1,4 @@
-"""transmission_renderer_tpu — a TPU-native forward-plus glTF PBR renderer.
+"""transmission_renderer_tpu — a forward-plus glTF PBR renderer for GPUs.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 ``expenses/transmission-renderer`` (a Rust/Vulkan renderer specialised in
@@ -8,7 +8,7 @@ rough-transmission rendering through an opaque-framebuffer mip chain,
 Beer's-law volume attenuation, ray-traced shadows over an LBVH, and Lottes
 tonemapping.
 
-Architecture (TPU-first, not a port):
+Architecture (array-first, not a port):
   * The whole frame is one jitted function built from dense array passes —
     the Vulkan render-graph/barrier machinery is replaced by XLA dataflow.
   * Rasterisation is a tile-binned visibility-buffer kernel; shading is a
@@ -16,8 +16,8 @@ Architecture (TPU-first, not a port):
     fragment-shader coupling of the reference).
   * GPU atomics (culling compaction, cluster light lists) become
     sorts/prefix-scans with identical semantics.
-  * Multi-chip scaling shards framebuffer row-bands over an ICI mesh via
-    ``shard_map``; mip-chain sampling uses gathered coarse levels.
+  * Multi-device scaling shards framebuffer row-bands over a device mesh
+    via ``shard_map``; mip-chain sampling uses gathered coarse levels.
 """
 
 __version__ = "0.1.0"

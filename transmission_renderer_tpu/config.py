@@ -38,33 +38,32 @@ class RenderConfig:
     rotate_model: bool = False
     debug_clusters: bool = False
 
-    # --- raster tiling (TPU-specific; no reference equivalent) -------------
-    # Tile size for the binned rasteriser. 8 x 128 matches a float32 VPU
-    # register tile (sublane x lane).
+    # --- raster tiling (no reference equivalent) ----------------------------
+    # Tile size for the binned rasteriser: 8 x 128 = 1024 pixels, the
+    # raster kernel's tile; every static cap below is sized for it.
     tile_h: int = 8
     tile_w: int = 128
-    # Static capacity of the per-tile triangle bins. Triangles whose screen
-    # bounding box covers more tiles than `max_tiles_per_tri` fall back to
-    # the (every-tile-visits-it) big-triangle list. K=16 keeps the binning
-    # sort at T*16 pairs; mid-size triangles (> 16 tiles) ride the big
-    # list, which is capped — raise max_big_tris for scenes with many
-    # large triangles (overflow drops draws, like an undersized indirect
-    # buffer would in the reference).
+    # Static capacity of the per-tile triangle bins (XLA raster path).
+    # Triangles whose screen bounding box covers more tiles than
+    # `max_tiles_per_tri` fall back to the (every-tile-visits-it)
+    # big-triangle list, which is capped — raise max_big_tris for scenes
+    # with many large triangles (overflow drops draws, like an undersized
+    # indirect buffer would in the reference).
     max_tris_per_tile: int = 2048
     max_tiles_per_tri: int = 16
-    # On the Pallas path big triangles join the sorted record stream via
+    # On the kernel path big triangles join the sorted record stream via
     # bbox-expanded pairs (max_big_tris * n_tiles pair slots feed the
     # binning sort — keep this modest); overflow beyond the cap drops
     # draws and is surfaced via FrameDiagnostics.big_tri_count.
     max_big_tris: int = 256
 
-    # --- Pallas-path binning tiers (ops/raster.py::bin_triangles) -----------
-    # The sorted-pair stream's size sets the binning sort + payload-gather
-    # cost (~23 ms of a 115 ms 1080p frame at K=16). Small triangles emit
-    # K = pallas_tiles_per_tri pairs each; coverage in (K, mid cap] tiles
-    # demotes to a mid tier (max_mid x cap pair slots); larger ones to the
-    # giant tier (max_big x n_tiles slots). Tier overflow drops draws and
-    # is surfaced via FrameDiagnostics (mid_tri_count / big_tri_count).
+    # --- kernel-path binning tiers (ops/raster.py::bin_triangles) ----------
+    # The sorted-pair stream's length sets the binning sort cost. Small
+    # triangles emit K = pallas_tiles_per_tri pairs each; coverage in
+    # (K, mid cap] tiles demotes to a mid tier (max_mid x cap pair slots);
+    # larger ones to the giant tier (max_big x n_tiles slots). Tier
+    # overflow drops draws and is surfaced via FrameDiagnostics
+    # (mid_tri_count / big_tri_count).
     pallas_tiles_per_tri: int = 2
     pallas_mid_tile_cap: int = 128
     pallas_max_mid_tris: int = 512
@@ -80,33 +79,21 @@ class RenderConfig:
     pallas_tiers: tuple = ((8, 4096), (128, 512), (2048, 64), (0, 16))
     # Pair-stream compaction (ops/raster.py::bin_triangles): compact the
     # mostly-sentinel slot stream to frac * slots valid pairs before the
-    # sort, so the sort and the payload gather scale with TRUE pair
-    # count (~25% of the dragon's 529K slots). MEASURED NEGATIVE at
-    # default scale (v5e, dragon 1080p): payload 3.97 -> 2.89 ms but
-    # binning 7.92 -> 13.14 ms — the 529K-long cumsum + two scatters
-    # cost more than the 529K->186K sort shrink saves (scatter cost is
-    # superlinear: the 0.79 ms/scatter figure from the tier compaction
-    # was at 134K elements). Off by default; kept as a knob because the
-    # tradeoff flips for scenes whose stream is sentinel-heavier.
-    # Exact while demand fits; overflow drops pairs (FrameDiagnostics
-    # pair_demand vs capacity).
+    # sort, so the sort scales with TRUE pair count (~25% of the dragon's
+    # 529K slots) at the price of a cumsum and two scatters. Off by
+    # default (not measured on the GPU). Exact while demand fits;
+    # overflow drops pairs (FrameDiagnostics pair_demand vs capacity).
     pallas_pair_cap_frac: float | None = None
 
-    # Rasteriser backend: None = auto (Pallas kernel on TPU when the tile
-    # shape is the kernel's native 8x128; pure-JAX vmapped raster
-    # otherwise). On the Pallas path alpha-clip classes resolve in-kernel
-    # via depth peeling (render/frame.py::_rasterize_clip_peeled); the
-    # JAX path tests coverage in-raster. True/False force the backend.
+    # Rasteriser backend (utils/platform.py::use_raster_kernel): None =
+    # the Triton tile kernel (ops/raster_pallas_gbuf.py) on a GPU when the
+    # tile shape is the kernel's native 8x128, the XLA vmapped raster
+    # otherwise. On the kernel path alpha-clip classes resolve via depth
+    # peeling (render/frame.py::_rasterize_clip_peeled); the XLA path
+    # tests coverage in-raster. True/False force the backend.
     use_pallas_raster: bool | None = None
-    # Run the Pallas kernel in interpreter mode (CPU testing only).
+    # Run the raster kernel in interpreter mode (CPU testing only).
     pallas_interpret: bool = False
-    # Fused Pallas deferred-shade kernel (render/shade_kernel.py): the
-    # opaque shade's material assembly + clustered light loop + BRDF as
-    # ONE kernel, replacing ~30 ms of fragmented XLA elementwise fusions
-    # at 1080p (the gathers stay in XLA at their measured floor). None =
-    # auto (on whenever the Pallas raster path is on); the XLA
-    # formulation remains the exactness oracle (tests/test_shade_kernel).
-    pallas_shade: bool | None = None
     # Walk the full static bin capacity per tile instead of the dynamic
     # trip count. Exactly equivalent (bin padding is -1 and masked), but
     # avoids the batched while_loop that jax.experimental.checkify cannot
@@ -143,12 +130,12 @@ class RenderConfig:
 
     # --- block-sparse shading (render/sparse.py) ----------------------------
     # The reference shades only covered fragments (raster hardware +
-    # depth pre-pass, readme.md:74); these caps recover that economics on
-    # TPU by compacting 128-pixel blocks containing active pixels into a
-    # static worklist sized cap_frac * num_blocks. Exact while the active
-    # block count fits the cap; overflow leaves blocks unshaded and is
-    # reported via FrameDiagnostics (the analogue of an undersized
-    # indirect DrawBuffer, src/main.rs:2423-2476). None = dense shading.
+    # depth pre-pass, readme.md:74); these caps recover that economics by
+    # compacting 128-pixel blocks containing active pixels into a static
+    # worklist sized cap_frac * num_blocks. Exact while the active block
+    # count fits the cap; overflow leaves blocks unshaded and is reported
+    # via FrameDiagnostics (the analogue of an undersized indirect
+    # DrawBuffer, src/main.rs:2423-2476). None = dense shading.
     # Transmissive coverage is almost always a small screen fraction, so
     # the transmission pass defaults to sparse; opaque coverage can reach
     # 100%, so it defaults to dense (enable per scene/camera). The 0.25
@@ -160,29 +147,22 @@ class RenderConfig:
     transmission_block_cap_frac: float | None = 0.25
 
     # --- sparse-tile raster passes (render/frame.py) -------------------------
-    # The G-buffer kernel pays a fixed per-tile cost (~10 us: channel
-    # inits + record-stream spin-up) even for tiles its draw class never
-    # touches — ~20 ms/pass across a 1080p tile grid. Classes whose
-    # coverage is a small screen fraction (transmission, usually
-    # alpha-clip) instead raster a compacted worklist of only the tiles
+    # Classes whose coverage is a small screen fraction (transmission,
+    # usually alpha-clip) raster a compacted worklist of only the tiles
     # holding >= 1 record of that class (counts are free: they're the
-    # class-split ``tile_start`` runs). Exact while the active-tile count
-    # fits cap_frac * n_tiles (256-tile floor); overflow drops tiles and
-    # is surfaced via FrameDiagnostics. None = dense (every tile).
+    # class-split ``tile_start`` runs) instead of every tile of the grid.
+    # Exact while the active-tile count fits cap_frac * n_tiles (256-tile
+    # floor); overflow drops tiles and is surfaced via FrameDiagnostics.
+    # None = dense (every tile).
     transmission_tile_cap_frac: float | None = 0.25
     clip_tile_cap_frac: float | None = 0.5
     sparse_raster_tile_floor: int = 256
 
     # --- alpha-clip depth peeling (render/frame.py) --------------------------
     # Rounds of race -> alpha-test -> re-race for alpha-clip draw classes
-    # on the Pallas path. Exact while the number of alpha-rejected layers
+    # on the kernel path. Exact while the number of alpha-rejected layers
     # in front of the true winner stays below this; leftovers fall through
     # to the layer below and are counted in FrameDiagnostics.
-    # 4 rounds + the shrinking cap schedule below measure exact
-    # (clip_unresolved = 0) on the stress scene's foliage stacks with
-    # demand collapsing 553 -> 122 -> 16 -> 0 failing tiles per round
-    # (tools/clip_probe.py); the last rounds run at small caps nearly
-    # for free
     alpha_clip_rounds: int = 4
     # Static capacity of the failing-tile re-race list, as a fraction of
     # the tile grid (overflowing tiles keep their previous winner and are
@@ -202,10 +182,9 @@ class RenderConfig:
     # --- GGX split-sum LUT -------------------------------------------------
     # Sampled size of the reference's 1024^2 ggx_lut.png asset. The default
     # 256 box-reduces it (bilinear-sampled error ~1e-4, below the asset's
-    # own 8-bit quantisation — utils/ggx_lut.py) because TPU gather cost is
-    # table-size-bound; set None for the native-resolution table when a
-    # strict-parity run should sample the identical texels the reference
-    # does.
+    # own 8-bit quantisation — utils/ggx_lut.py); set None for the
+    # native-resolution table when a strict-parity run should sample the
+    # identical texels the reference does.
     ggx_lut_size: int | None = 256
 
     # --- precision ---------------------------------------------------------
@@ -213,7 +192,7 @@ class RenderConfig:
     # hard part 6); bf16 is only used where it cannot affect fidelity.
     dtype: str = "float32"
     # Evaluate the per-light BRDF/BTDF cores (basic_brdf /
-    # transmission_btdf, the light loop's VPU-bound bulk) in bfloat16,
+    # transmission_btdf, the light loop's arithmetic bulk) in bfloat16,
     # accumulating per-light contributions in f32. Light directions,
     # attenuation and spot factors stay f32 (they are cheap and their
     # error would multiply the whole contribution). Spends the BASELINE
@@ -251,7 +230,7 @@ class RenderConfig:
         )
 
 
-# Bindless image table capacity (reference src/main.rs:59). The TPU build
+# Bindless image table capacity (reference src/main.rs:59). This renderer
 # uses a flat texel atlas rather than a descriptor table, so this is only a
 # default metadata-table size, not a hard limit.
 MAX_IMAGES = 193

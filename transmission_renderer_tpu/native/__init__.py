@@ -1,6 +1,6 @@
 """Native (C++) host components, loaded via ctypes.
 
-The reference's host runtime is native Rust; the TPU build's hot host
+The reference's host runtime is native Rust; this renderer's hot host
 paths (LBVH construction, world-space vertex transforms for BVH builds)
 are implemented in C++ (native/bvh_native.cc) and compiled on first use
 with the system compiler. Pure-NumPy fallbacks keep everything working if

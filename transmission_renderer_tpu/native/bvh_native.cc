@@ -1,7 +1,7 @@
 // Native LBVH construction — the host-side analogue of the reference's
 // acceleration-structure build driver (src/acceleration_structures.rs),
-// which records BLAS/TLAS builds for the GPU. TPUs have no AS hardware,
-// so the build runs on the host CPU; this C++ implementation replaces the
+// which records BLAS/TLAS builds for the GPU's ray-tracing hardware. Here
+// the build runs on the host CPU; this C++ implementation replaces the
 // interpreted Python loop in ops/bvh.py for large scenes (~100x faster).
 //
 // Exposed via a plain C ABI and loaded with ctypes (no pybind11 in this

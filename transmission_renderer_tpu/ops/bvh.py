@@ -1,4 +1,4 @@
-"""Wide (8-ary) LBVH build + ray traversal — the TPU replacement for
+"""Wide (8-ary) LBVH build + ray traversal — the replacement for
 VK_KHR_acceleration_structure / ray_query (SURVEY.md §2.5).
 
 The reference builds one BLAS per primitive plus a TLAS over instances
@@ -35,14 +35,11 @@ import jax.numpy as jnp
 import numpy as np
 
 # Triangles per leaf row (one gather = LEAF_TRIS Moller-Trumbore tests).
-# 16, not 4: in-loop gather cost on v5e is ~3.3 ns/idx for tables up to
-# ~5k rows but ~12 ns/idx at 33k rows (measured) — fat leaves put the
-# dragon's leaf tables (134k tris -> 8.4k rows) at the small-table floor
-# AND drop one tree level (fewer pops). The extra per-pop triangle tests
-# are VPU work, which measures ~50x cheaper than the gathers they ride.
-# Env-overridable for hardware sweeps of the VPU-vs-gather trade (the
-# leaf half's 16 masked tri tests run on EVERY pop); builds and walks in
-# one process share the module constant, so a sweep just sets the env.
+# Fat leaves shrink the dragon's leaf table (134k tris -> 8.4k rows) and
+# drop one tree level (fewer pops) at the price of 16 masked triangle
+# tests on every pop — arithmetic traded for gathers. Env-overridable for
+# sweeps of that trade; builds and walks in one process share the module
+# constant, so a sweep just sets the env.
 LEAF_TRIS = int(os.environ.get("TRTPU_LEAF_TRIS", "16"))
 WIDE = 8  # children per internal node (one gather = 8 slab tests)
 # The stackless bitstack traversal keeps one 8-bit child mask per level in
@@ -71,10 +68,6 @@ _PHASE1_TRIPS = int(os.environ.get("TRTPU_PHASE1_TRIPS", "8"))
 # phase-2 compaction order: "done" (unfinished first, raster-coherent) or
 # "idx" (unfinished grouped by current subtree) — see trace_rays
 _PHASE2_SORT = os.environ.get("TRTPU_PHASE2_SORT", "done")
-# Pallas PACKET walk for occlusion rays (ops/bvh_packet.py): auto on TPU
-# when the unified table fits VMEM; TRTPU_PACKET_WALK=0 forces the XLA
-# bitstack walk everywhere (A/B + fallback knob)
-_PACKET_WALK = os.environ.get("TRTPU_PACKET_WALK", "1") == "1"
 
 
 @jax.tree_util.register_pytree_node_class
@@ -264,11 +257,8 @@ def refit_bvh(
 def _stable_partition_perm(key: jnp.ndarray) -> jnp.ndarray:
     """Permutation that stable-partitions by a bool key (False first) —
     EXACTLY jnp.argsort(key, stable=True), but via cumsum + unique-index
-    scatter. An argsort over the ray batch is a full sort (~180 ms per
-    1M elements on v5e — three of them cost ~2.8 s/frame at 6.2M rays,
-    the RT pass's entire ray-count-independent overhead, BENCH_r03 /
-    docs/PERFORMANCE.md); the scatter is a gather-class op (~12 ns/elem,
-    ~75 ms at the same size)."""
+    scatter: an argsort over the ray batch is a full sort, the scatter
+    one pass over it."""
     n = key.shape[0]
     kf = (~key).astype(jnp.int32)
     nf = jnp.cumsum(kf)
@@ -378,33 +368,9 @@ def trace_rays(
     # nothing reads tri ids or uv, so the per-pop leaf-id gather and the
     # id/uv bookkeeping are dropped; hit lanes report tri_id 0. When ids
     # ARE needed they ride the SAME leaf row as f32 (exact for ids <
-    # 2^24, asserted) — one leaf gather instead of two, and in-loop
-    # gathers are the walk's dominant cost (~3-12 ns/lane/gather
-    # measured on v5e; see docs/PERFORMANCE.md).
+    # 2^24, asserted) — one leaf gather instead of two (in-loop gathers
+    # dominate the walk's work).
     occlusion_only = any_hit and alpha_test_fn is None
-    if occlusion_only and not return_trips and _PACKET_WALK:
-        from transmission_renderer_tpu.ops.bvh_packet import (
-            packet_walk_supported,
-            trace_occlusion_packets,
-        )
-
-        if jax.default_backend() == "tpu" and packet_walk_supported(bvh):
-            # Pallas packet traversal: one scalar row fetch per 128-ray
-            # packet pop against the VMEM-resident BVH instead of a
-            # per-lane gather — bit-identical hit set (occlusion is an
-            # existence predicate; tests/test_bvh_packet.py)
-            hit = trace_occlusion_packets(
-                bvh, tri_vertices, positions, origins, directions,
-                t_min=t_min, t_max=t_max,
-            )
-            zeros = jnp.zeros(shape, jnp.float32)
-            return (
-                hit,
-                jnp.broadcast_to(t_max_arr.reshape(shape), shape),
-                jnp.where(hit, 0, -1).astype(jnp.int32),
-                zeros,
-                zeros,
-            )
     if not occlusion_only:
         assert bvh.num_tris < (1 << 24), "tri ids exceed exact-f32 range"
         leaf_rows = jnp.concatenate(
@@ -416,8 +382,7 @@ def trace_rays(
     # ONE unified row table for both pop halves: the masked leaf and
     # inner halves both execute every pop (SIMD), so separate tables cost
     # TWO in-loop gathers per pop — and in-loop gathers are the
-    # traversal's dominant cost (~0.8-3 ms per 256k-lane iteration,
-    # docs/PERFORMANCE.md). Node rows (WIDE*6 wide) pad to the leaf row
+    # traversal's dominant work. Node rows (WIDE*6 wide) pad to the leaf row
     # width and prepend the leaf rows; each pop gathers one row and the
     # two halves slice it. Built once per trace outside the walk
     # (~+0.5 MB of node-row padding).
@@ -446,8 +411,7 @@ def trace_rays(
         # by its index (ancestor at +k levels = idx >> 3k). A per-lane
         # stack array would need dynamic scatter/gather into [N, 64]
         # inside the batched while-loop, which both moves real memory
-        # every iteration and faults the TPU backend at large N (observed
-        # worker crashes above ~64k rays). Masked straight-line leaf +
+        # every iteration. Masked straight-line leaf +
         # inner halves, NO lax.cond (batching a cond broadcasts its
         # unbatched closure operands across the ray batch).
         def pop(o_i, inv_i, d_i, s):
@@ -604,9 +568,8 @@ def trace_rays(
         return jax.tree.map(lambda a: a.reshape(m, *a.shape[2:]), out)
 
     # Chunk the ray batch: a single flat multi-million-ray batched
-    # while-loop balloons live state and has overflowed TPU compiler
-    # loop-bound checks; lax.map walks fixed-size chunks sequentially —
-    # each chunk is still plenty to saturate the VPU. Large batches run
+    # while-loop balloons live state; lax.map walks fixed-size chunks
+    # sequentially — each chunk still fills the device. Large batches run
     # TWO phases: a budgeted sweep (every lane stops at
     # _PHASE1_TRIPS * _UNROLL pops — a p90-ish trip count), then a
     # compaction that packs unfinished rays to the front and an
@@ -616,10 +579,8 @@ def trace_rays(
     # (_RAY_CHUNK is module-level so tests can shrink it to cover the
     # phase path on CPU.)
     #
-    # PERMUTATION ECONOMICS: a gather costs by INDEX COUNT, so applying
-    # a ray permutation to k separate arrays costs k full-batch gathers
-    # (~26 of them was ~2-3 s/frame at 6.2M rays — the RT pass's entire
-    # "fixed cost", BENCH_r03). Each permutation is therefore applied to
+    # PERMUTATION ECONOMICS: applying a ray permutation to k separate
+    # arrays costs k full-batch gathers. Each permutation is therefore applied to
     # ONE packed row per logical group: rays pack to [N, 9] once, and
     # walk state packs to a [N, 10] f32 row around each shuffle (ids and
     # the two trail words are < 2^24, bools are 0/1 — all f32-exact).
@@ -734,15 +695,14 @@ def trace_shadow_bfs(
     """Any-hit occlusion via LEVEL-SYNCHRONOUS frontier traversal
     -> (hit [...] bool, overflowed [] int32).
 
-    The TPU-shaped alternative to the per-ray bitstack walk
+    The breadth-first alternative to the per-ray bitstack walk
     (trace_rays): instead of a batched while loop that executes ~2k
-    small masked iterations (measured 47 ns/lane/pop on v5e — ~1000x
-    off VPU peak, the loop body's gathers and bookkeeping dominate),
-    the frontier design runs ONE flat vectorized round per tree level:
+    small masked iterations, the frontier design runs ONE flat
+    vectorized round per tree level:
     every live (ray, node) pair tests its 8 children in a single big
     gather + slab test, survivors are compacted with a cumsum +
-    unique-index scatter (no sorts — a 1M-element argsort costs ~180 ms
-    on this chip), and the next round processes them all at once. Tree
+    unique-index scatter (no sorts), and the next round processes them
+    all at once. Tree
     depth (~5 rounds for 134k tris) replaces per-ray trip counts (~17
     mean, ~170 chunk-worst) as the iteration count.
 
@@ -756,11 +716,10 @@ def trace_shadow_bfs(
 
     ``cap_factor``: frontier capacity per ray-chunk. If a round would
     exceed it, the overflow count is returned (> 0 means some items
-    were DROPPED and shadows may be missed). NOTE: this function is a
-    KEPT NEGATIVE RESULT (measured 32-54 s vs the walk's 23.6 s at
-    1080p — see docs/PERFORMANCE.md) retained for its exact-match and
-    overflow-reporting tests; nothing in the frame path calls it, so
-    the overflow count is not wired into FrameDiagnostics.
+    were DROPPED and shadows may be missed). NOTE: nothing in the frame
+    path calls this function (it lost to the walk where it was last
+    measured; not measured on the GPU — ROADMAP D4), so the overflow
+    count is not wired into FrameDiagnostics.
     """
     shape = origins.shape[:-1]
     o = origins.reshape(-1, 3)

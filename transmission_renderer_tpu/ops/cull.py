@@ -5,7 +5,7 @@ Reproduces the reference's two compute stages:
     sphere-vs-frustum in view space with the symmetric-plane (niagara)
     trick — here a single vectorised op over all instances.
   * ``demultiplex_draws`` (shader/src/lib.rs:473-517): instead of emitting
-    indirect draw commands into 4 atomic-compacted buckets, the TPU path
+    indirect draw commands into 4 atomic-compacted buckets, this path
     produces a per-triangle enable mask per bucket; the rasteriser consumes
     masks directly (draws never touch the host, same as the reference's
     GPU-driven design).

@@ -5,13 +5,11 @@ chain every frame (``generate_mips`` call, src/main.rs:2054-2063) and the
 transmission pass samples it at arbitrary UV with an explicit LOD
 (``sample_by_lod`` closure, shader/src/lib.rs:135-138).
 
-TPU layout: like the texture atlas (scene/textures.py), every level is
+Layout: like the texture atlas (scene/textures.py), every level is
 stored as 2x2 texel blocks in four phase-shifted copies, so a bilinear tap
-is ONE [12]-f32 row gather and the trilinear fetch is two (TPU gathers
-cost by index count, ~13 ms per 2M on v5e — the row-major layout's 8
-taps were the transmission pass's biggest cost). Building the phase
-copies is dense reshape/pad work (~130 MB of writes at 1080p, well under
-a millisecond of HBM bandwidth). Level sizes/offsets are static Python
+is ONE [12]-f32 row gather and the trilinear fetch is two (a row-major
+layout needs 8 taps). Building the phase copies is dense reshape/pad
+work (~130 MB of writes at 1080p). Level sizes/offsets are static Python
 ints (select chains, no meta gathers). CLAMP_TO_EDGE is baked into the
 edge blocks, matching the reference's clamp framebuffer sampler.
 """
@@ -31,25 +29,20 @@ from transmission_renderer_tpu.scene.textures import mip_levels_for_size
 # Levels at or above this many texels store ROW form ([lw*lh, 3] — the
 # level image itself) instead of a quad table when built with a static
 # level_set: the quad build costs 4 phase copies + transposes of the
-# level (measured 27.7 ms/frame on the stress scene whose roughness-0
-# glass pulls levels 0-1 into the set — ~130 MB of layout shuffling),
-# while the row-form tap is 4 small-table gathers instead of 1, paid
-# only per covered TRANSMISSION pixel (a small screen fraction).
-# Bit-exact: same texels, same lerp expression, same clamp. The
-# threshold admits only level 0 at 1080p: level 1's quad build (~25 MB)
-# measured cheaper than its 4-gather fetch at stress-scene transmission
-# coverage (shade_transmission 21 -> 31 ms when level 1 went row-form).
+# level (~130 MB of layout shuffling at 1080p level 0), while the
+# row-form tap is 4 gathers instead of 1, paid only per covered
+# TRANSMISSION pixel (a small screen fraction). Bit-exact: same texels,
+# same lerp expression, same clamp. The threshold admits only level 0 at
+# 1080p (ROADMAP D2: not measured on the GPU).
 ROWS_FORM_MIN_TEXELS = int(
     os.environ.get("TRTPU_PYR_ROWS_MIN", str(1_500_000))
 )
 
 # Texels per physical row in ROW-form levels ([ceil(wh/G), 3*G] instead
-# of [wh, 3]): TPU gather cost is dominated by table ROW COUNT (see
-# MipPyramid.level_quads), so packing G texels per row cuts the 4-gather
-# tap's per-index cost ~(row-count regime) x while the build stays a
-# contiguous reshape (no phase-copy shuffles — the reason ROW form exists).
-# G=16 puts 1080p level 0 at ~130k rows (the ~2.3 ns/idx regime) at
-# 192 B/row; the sub-texel select is G-1 cheap wheres per tap.
+# of [wh, 3]): packing G texels per row cuts the table's row count while
+# the build stays a contiguous reshape (no phase-copy shuffles — the
+# reason ROW form exists). G=16 puts 1080p level 0 at ~130k rows of
+# 192 B; the sub-texel select is G-1 wheres per tap.
 ROW_GROUP = int(os.environ.get("TRTPU_PYR_ROW_GROUP", "16"))
 assert ROW_GROUP & (ROW_GROUP - 1) == 0 and ROW_GROUP >= 1
 _RGSHIFT = ROW_GROUP.bit_length() - 1
@@ -58,11 +51,8 @@ _RGSHIFT = ROW_GROUP.bit_length() - 1
 class MipPyramid(NamedTuple):
     # Per-LEVEL quad tables, GROUP quad-blocks per physical row
     # ([ceil(4 * bh_k * bw_k / GROUP), 12 * GROUP] f32 each). Split per
-    # level because TPU gather cost is dominated by table ROW COUNT
-    # (nearly independent of row width — measured v5e @2M idx, 16.8 MB:
-    # 350k-row [12]f32 ~10 ms vs 87.5k-row [48]f32 ~1 ms), so a fetch
-    # restricted to a static level set only ever touches small tables and
-    # the row grouping cuts the rest ~4x. The concatenated view
+    # level so a fetch restricted to a static level set only ever touches
+    # small tables. The concatenated view
     # (``quads``) serves per-pixel dynamic levels; levels outside a
     # static ``level_set`` passed to build_pyramid hold None (their quad
     # construction is skipped at trace time — cheaper and more reliable
@@ -91,22 +81,11 @@ class MipPyramid(NamedTuple):
         return len(self.offsets)
 
 
-# Quad-blocks per physical row. 12 f32/block -> the device tiles rows
-# to 128-element multiples either way (G4: 48->128 pad 2.67x; G8:
-# 96->128 pad 1.33x at HALF the rows and the same physical 512 B row) —
-# sweepable on hardware via TRTPU_PYRAMID_GROUP (pow2).
+# Quad-blocks per physical row (12 f32 per block); sweepable via
+# TRTPU_PYRAMID_GROUP (pow2).
 GROUP = int(os.environ.get("TRTPU_PYRAMID_GROUP", "4"))
 assert GROUP & (GROUP - 1) == 0 and GROUP >= 1
 _GSHIFT = GROUP.bit_length() - 1
-# Channel-planar downsample chain: slice [H, W, 3] into three [H, W]
-# planes and box-filter each (identical adds per element -> bit-exact;
-# pinned by tests/test_mipchain.py). The interleaved chain reduces over
-# a 3-wide minor axis, which maps to mostly-empty 128-lane VPU registers
-# on device. DEFAULT ON since round 4: -3.4 ms on the stress scene
-# (whose set reaches level 0, the biggest chain) and neutral-to-noise on
-# scenes with coarse-only sets (round-3 dragon sweep) — hardware A/B
-# knob (tools/frame_ab.py: planar_pyr).
-PLANAR = os.environ.get("TRTPU_PLANAR_PYR", "1") == "1"
 
 
 def pyramid_shapes(width: int, height: int) -> list[tuple[int, int]]:
@@ -143,12 +122,6 @@ def _downsample2x(img: jnp.ndarray) -> jnp.ndarray:
     ) * 0.25
 
 
-# the channel-planar chain (PLANAR knob) downsample — same function; the
-# name records that bit-exactness with the interleaved chain is pinned
-# by tests/test_mipchain.py
-_downsample2x_plane = _downsample2x
-
-
 def _pair_matrix(n: int) -> jnp.ndarray:
     """[n, max(n//2, 1)] 0/1 f32 matrix pairing element 2j, 2j+1 -> j
     (rows beyond 2*(n//2) are zero — the floor(n/2) odd-edge drop)."""
@@ -160,29 +133,27 @@ def _pair_matrix(n: int) -> jnp.ndarray:
     )
 
 
-def _downsample2x_plane_mxu(plane: jnp.ndarray) -> jnp.ndarray:
-    """2x2 box downsample of ONE [H, W] channel plane via two MXU
-    matmuls with 0/1 pairing matrices.
-
-    Why: the reshape-based ``_downsample2x`` materialises [nh, 2, nw, 2]
-    intermediates whose trailing size-2 axis pads to 128 device lanes
-    (64x physical bytes — measured 9.2 ms of the dragon frame's
-    pyr_down); a dot against a 0/1 matrix keeps every tensor in natural
-    [rows, lanes] layout and runs on the MXU.
+def _downsample2x_plane_matmul(plane: jnp.ndarray) -> jnp.ndarray:
+    """2x2 box downsample of ONE [H, W] channel plane via two matmuls
+    with 0/1 pairing matrices, which keep every tensor in natural
+    [rows, columns] layout (the reshape-based ``_downsample2x`` builds
+    [nh, 2, nw, 2] intermediates).
 
     Exactness: horizontal-pair-add first, then vertical — the SAME
     association ``(a+b) + (c+d)`` as ``_downsample2x`` (top-row sum plus
     bottom-row sum, then * 0.25). Each output accumulates exactly two
-    nonzero products of exact 1.0 coefficients, so on CPU the result is
-    BIT-identical to the explicit adds (pinned by tests/test_mipchain.py
-    ::test_mxu_downsample_bit_exact); the TPU MXU's split-mantissa f32
-    passes may differ by <= 2 ulp, far inside the 1e-3 fidelity budget.
+    nonzero products of exact 1.0 coefficients, so at HIGHEST precision
+    the result is BIT-identical to the explicit adds (pinned by
+    tests/test_mipchain.py::test_mxu_downsample_bit_exact). The precision
+    is explicit: a GPU's default f32 matmul may round the plane to TF32.
     """
     h, w = plane.shape
     if h <= 1 or w <= 1:
         return _downsample2x(plane)
-    t = plane @ _pair_matrix(w)  # [h, w//2]: img[i,2j] + img[i,2j+1]
-    out = _pair_matrix(h).T @ t  # [h//2, w//2]: top + bottom
+    hi = jax.lax.Precision.HIGHEST
+    # [h, w//2]: img[i,2j] + img[i,2j+1]
+    t = jnp.matmul(plane, _pair_matrix(w), precision=hi)
+    out = jnp.matmul(_pair_matrix(h).T, t, precision=hi)  # top + bottom
     return out * 0.25
 
 
@@ -242,9 +213,8 @@ def build_pyramid(
     be pure waste.
 
     Planes input is the fast path: the downsample chain runs per
-    channel plane on the MXU (``_downsample2x_plane_mxu``) and channels
-    interleave only for the (small) per-level quad/ROW tables — an
-    interleaved [H, W, 3] frame pays a lane-padded channel split first."""
+    channel plane (``_downsample2x_plane_matmul``) and channels
+    interleave only for the (small) per-level quad/ROW tables."""
     if isinstance(framebuffer, (tuple, list)):
         in_planes = tuple(framebuffer)
         h, w = in_planes[0].shape
@@ -259,7 +229,7 @@ def build_pyramid(
     with jax.named_scope("pyr_down"):
         planes = [list(in_planes)]
         for _ in range(max_needed):
-            planes.append([_downsample2x_plane_mxu(p) for p in planes[-1]])
+            planes.append([_downsample2x_plane_matmul(p) for p in planes[-1]])
 
     def interleave(k):
         return jnp.stack(planes[k], axis=-1)
@@ -283,10 +253,8 @@ def build_pyramid(
                 # CHANNEL-BLOCKED row form ([G reds | G greens | G
                 # blues] per row), built straight from the planar
                 # downsample chain: per plane a contiguous reshape to
-                # [wh/G, G], then one concat. The texel-interleaved
-                # [wh, 3] form this replaces forced a planar ->
-                # interleaved relayout of the whole level (~8 ms of the
-                # stress scene's 11.6 ms pyr_quads at level 0, v5e).
+                # [wh/G, G], then one concat (no planar -> interleaved
+                # relayout of the whole level).
                 chans = []
                 for p in planes[k]:
                     flat = p.reshape(-1)
@@ -480,143 +448,6 @@ def _bilinear_level_set_dynamic(
         ck = _bilinear_level_static(pyr, k, uv)
         out = ck if out is None else jnp.where((level == k)[..., None], ck, out)
     return out
-
-
-def _dynamic_tap_parts(
-    pyr: MipPyramid, level: jnp.ndarray, uv: jnp.ndarray, lmin: int, hi: int
-):
-    """The footprint + ROW-GATHER halves of _bilinear_level_set_dynamic
-    (quad-form levels only — caller guarantees no ROW-form level in
-    [lmin, hi]): returns (rows [..., 12*GROUP] natural-layout gather,
-    sub in [0, GROUP), fx, fy). The sub-block select + lerp happen in
-    the Pallas fetch-finish kernel (ops/tap_finish.py), which consumes
-    the gather output in-register — no optimization_barrier relayout."""
-    w = jnp.full(level.shape, pyr.widths[lmin], jnp.int32)
-    h = jnp.full(level.shape, pyr.heights[lmin], jnp.int32)
-    for k in range(lmin + 1, hi + 1):
-        pick = level == k
-        w = jnp.where(pick, pyr.widths[k], w)
-        h = jnp.where(pick, pyr.heights[k], h)
-    x = uv[..., 0] * w.astype(jnp.float32) - 0.5
-    y = uv[..., 1] * h.astype(jnp.float32) - 0.5
-    x0 = jnp.floor(x)
-    y0 = jnp.floor(y)
-    fx = x - x0
-    fy = y - y0
-    x0 = x0.astype(jnp.int32)
-    y0 = y0.astype(jnp.int32)
-    fx = jnp.where(x0 < 0, 0.0, fx)
-    fy = jnp.where(y0 < 0, 0.0, fy)
-    x0 = jnp.clip(x0, 0, w - 1)
-    y0 = jnp.clip(y0, 0, h - 1)
-
-    quads_set = jnp.concatenate(
-        [pyr.level_quads[k] for k in range(lmin, hi + 1)], axis=0
-    )
-    goffs, go = {}, 0
-    for k in range(lmin, hi + 1):
-        goffs[k] = go
-        go += pyr.level_quads[k].shape[0]
-    goff = jnp.full(level.shape, goffs[lmin], jnp.int32)
-    for k in range(lmin + 1, hi + 1):
-        goff = jnp.where(level == k, goffs[k], goff)
-    bw = (w + 1) >> 1
-    bh = (h + 1) >> 1
-    phase = (y0 & 1) * 2 + (x0 & 1)
-    qidx = phase * (bw * bh) + (y0 >> 1) * bw + (x0 >> 1)
-    ridx = goff + (qidx >> _GSHIFT)
-    if ridx.ndim > 1:
-        # 2-D index chain (see pyramid_fetch_parts): pin the compute
-        # shape, flatten only the gather operand
-        ridx = jax.lax.optimization_barrier(ridx).reshape(-1)
-    rows = quads_set[ridx]
-    return rows, qidx & (GROUP - 1), fx, fy
-
-
-def _static_tap_parts(pyr: MipPyramid, k: int, uv: jnp.ndarray):
-    """Footprint + row-gather halves of _bilinear_level_static's
-    quad-form branch at static level k."""
-    w, h = pyr.widths[k], pyr.heights[k]
-    x = uv[..., 0] * float(w) - 0.5
-    y = uv[..., 1] * float(h) - 0.5
-    x0 = jnp.floor(x)
-    y0 = jnp.floor(y)
-    fx = x - x0
-    fy = y - y0
-    x0 = x0.astype(jnp.int32)
-    y0 = y0.astype(jnp.int32)
-    fx = jnp.where(x0 < 0, 0.0, fx)
-    fy = jnp.where(y0 < 0, 0.0, fy)
-    x0 = jnp.clip(x0, 0, w - 1)
-    y0 = jnp.clip(y0, 0, h - 1)
-    bw = (w + 1) >> 1
-    bh = (h + 1) >> 1
-    phase = (y0 & 1) * 2 + (x0 & 1)
-    qidx = phase * (bw * bh) + (y0 >> 1) * bw + (x0 >> 1)
-    ridx = qidx >> _GSHIFT
-    if ridx.ndim > 1:
-        ridx = jax.lax.optimization_barrier(ridx).reshape(-1)
-    rows = pyr.level_quads[k][ridx]
-    return rows, qidx & (GROUP - 1), fx, fy
-
-
-def pyramid_fetch_parts(
-    pyr: MipPyramid, uv: jnp.ndarray, lod: jnp.ndarray, level_set
-):
-    """sample_pyramid_lod's level-set fetch split into per-tap
-    (rows, sub, fx, fy, weight) tuples for the Pallas fetch-finish
-    kernel (ops/tap_finish.py::transmission_fetch_planes):
-
-    * small sets (<= 3 levels): one STATIC tap per level with its tent
-      weight — the weighted ascending sum matches the XLA small-set
-      loop term for term;
-    * wider sets: the TWO dynamic bracketing taps with the same tent
-      weights sample_pyramid_lod applies.
-
-    None when sample_pyramid_lod would take a path the kernel doesn't
-    reproduce (no set, or any ROW-form level in range)."""
-    if level_set is None:
-        return None
-    lo, hi = min(level_set), max(level_set)
-    if tuple(level_set) != tuple(range(lo, hi + 1)):
-        return None
-    if any(pyr.level_quads[k] is None for k in range(lo, hi + 1)):
-        return None  # ROW-form level in range: XLA path handles it
-    # Run the footprint/index chains on [M/128, 128] 2-D shapes: flat
-    # [M]-shaped s32 select chains get a T(1,128) layout (1 sublane per
-    # 8-sublane register, ~8x VPU waste — see
-    # tap_finish.sample_bundle_planes); the tap helpers flatten only the
-    # gather operands. All reshapes are exact; the returned planes stay
-    # flat [M] (the fetch-finish kernel re-tiles them itself).
-    two_d = uv.ndim == 2 and uv.shape[0] % 128 == 0 and uv.shape[0] > 0
-    if two_d:
-        m = uv.shape[0]
-        uv = uv.reshape(m // 128, 128, 2)
-        lod = lod.reshape(m // 128, 128)
-
-    def flat(tap):
-        if not two_d:
-            return tap
-        rows, sub, fx, fy, wk = tap
-        return (rows, sub.reshape(m), fx.reshape(m), fy.reshape(m),
-                wk.reshape(m))
-
-    lod = jnp.clip(lod, float(lo), float(hi))
-    if hi - lo + 1 <= 3:
-        taps = []
-        for k in range(lo, hi + 1):
-            wk = jnp.clip(1.0 - jnp.abs(lod - float(k)), 0.0, 1.0)
-            taps.append(flat(_static_tap_parts(pyr, k, uv) + (wk,)))
-        return taps
-    l0 = jnp.floor(lod).astype(jnp.int32)
-    l1 = jnp.minimum(l0 + 1, hi)
-    t0 = _dynamic_tap_parts(pyr, l0, uv, lo, hi)
-    t1 = _dynamic_tap_parts(pyr, l1, uv, min(lo + 1, hi), hi)
-    l0f = l0.astype(jnp.float32)
-    w0 = jnp.clip(1.0 - jnp.abs(lod - l0f), 0.0, 1.0)
-    w1 = jnp.clip(1.0 - jnp.abs(lod - (l0f + 1.0)), 0.0, 1.0)
-    w1 = jnp.where(l1 == l0, 0.0, w1)
-    return [flat(t0 + (w0,)), flat(t1 + (w1,))]
 
 
 def sample_pyramid_lod(

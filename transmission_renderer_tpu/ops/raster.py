@@ -1,7 +1,7 @@
 """Tile-binned visibility-buffer rasterisation (pure-JAX reference path).
 
 Replaces the fixed-function triangle raster + depth test + indirect-draw
-machinery the reference gets from Vulkan (SURVEY.md §2.5): the TPU design
+machinery the reference gets from Vulkan (SURVEY.md §2.5): the design
 is a clipless homogeneous rasteriser (Olano-Greer style 2D-H edge
 functions) producing a *visibility buffer* (triangle id + perspective
 barycentrics + depth); shading happens in a separate dense per-pixel pass.
@@ -188,7 +188,7 @@ def bin_triangles(
     tiers: tuple | None = None,
     pair_cap_frac: float | None = None,
 ) -> TileBins:
-    """Sort-based binning (the TPU replacement for the reference's
+    """Sort-based binning (the replacement for the reference's
     atomic-append compaction, SURVEY.md §2.6).
 
     Each triangle emits up to K = max_tiles_per_tri (tile, tri) pairs from
@@ -409,8 +409,7 @@ def bin_triangles(
             pair_capacity = 0
 
     # Two-key sort: (bin, tri) — tri-ascending within a bin IS draw order
-    # (measured cheaper than a packed-key jnp.sort on v5e, and free of the
-    # 31-bit packing constraint).
+    # (free of the 31-bit packing constraint of a packed-key sort).
     sorted_bins, sorted_tris = jax.lax.sort(
         [flat_bins, flat_tris], num_keys=2
     )

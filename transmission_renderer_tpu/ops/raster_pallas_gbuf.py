@@ -1,14 +1,17 @@
-"""Pallas raster kernel variant that emits an interpolated G-buffer.
+"""Tile raster kernel (Pallas through Triton) that emits a G-buffer.
 
-The plain kernel (ops/raster_pallas.py) outputs a visibility buffer that a
-separate gather-based pass (render/gbuffer.py) expands into attributes —
-two ~6M-index gathers per pass on TPU. This variant carries the three
-vertices' attributes *in the record stream* (they're SMEM scalars anyway)
-and interpolates at depth-race win time, writing the G-buffer channels
-directly: no per-pixel attribute gathers at all.
+One program per 8x128 pixel tile, in a grid over a worklist of tile ids.
+Each program reads its own record run from the class-split bins
+(``tile_start`` / ``sorted_tri_ids``, ops/raster.py::bin_triangles) and
+races depth per pixel, keeping only the best depth and the winning
+triangle id in registers. After the walk each pixel gathers its winner's
+record ONCE and computes every output channel from it — the 22 G-buffer
+channels (``GBUF_CHANNELS``) or, with ``visibility=True``, the
+visibility buffer (tri id, depth, perspective barycentrics) that
+ops/raster.py::rasterize produces.
 
-Record layout: 64 f32 per record (48 used + 16 pad), 2 records per
-128-lane row:
+Record layout: one [64] f32 row per triangle, indexed by triangle id
+(the degenerate record, which never covers a pixel, sits at index T):
   [0:9]   adjugate rows (a0 b0 c0 a1 b1 c1 a2 b2 c2)
   [9:12]  z_clip,  [12:15] w_clip
   [15]    tri id + CLASS_BIT * draw_class, as float value. Classes map
@@ -19,7 +22,12 @@ Record layout: 64 f32 per record (48 used + 16 pad), 2 records per
   [16:24] v0: pos.xyz, nrm.xyz, uv.xy
   [24:32] v1, [32:40] v2
   [40]    material id (float value), [41] instance scale
-  [42:64] padding
+  [42:64] padding (a record's race fields fill one 64-byte sector)
+
+The race is the XLA raster's (ops/raster.py::_raster_tile): top-left
+fill rule, reversed-Z GREATER test, exact depth ties broken by the lower
+triangle id — a total order, so the result does not depend on the walk
+order of the record run or the big-triangle list.
 
 Alpha-clip classes rasterise through the same kernel via depth PEELING
 (render/frame.py::_rasterize_clip_peeled): race ignoring alpha, test the
@@ -30,37 +38,32 @@ number of rejected layers above the true winner is below the round count.
 
 Derivatives are the same closed forms as render/gbuffer.py: for an
 attribute with vertex values A_i, N = sum(e_i A_i), D = sum(e_i),
-dA/dnx = (sum(a_i A_i) D - N sum(a_i)) / D^2 — and sum(a_i A_i) is a
-per-record *scalar*, so the per-pixel cost is a handful of VPU ops.
+dA/dnx = (sum(a_i A_i) D - N sum(a_i)) / D^2.
 """
 
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
 from transmission_renderer_tpu.ops.raster import TileBins, TriangleSetup
-from transmission_renderer_tpu.ops.raster_pallas import CLASS_BIT, CLASS_SHIFT
 
 TILE_H = 8
 TILE_W = 128
 REC_F32 = 64
-RECS_PER_ROW = 128 // REC_F32  # 2
-CHUNK_ROWS = 16  # 32 records / chunk, 8 KB
-# Payload-gather source layout: the record table is [T, 64] f32, whose
-# minor axis pads to a whole 128-element device tile (2x physical bytes,
-# docs/PERFORMANCE.md "device-tile padding") — and XLA gather cost steps
-# with table ROW count. Packing record PAIRS into one flat 128-element
-# row ([ceil(T/2), 128]) halves both at zero real-byte cost; the per-id
-# half select is register work on rows the gather already fetched.
-# Sweepable on hardware (the win rides the measured row-count gather
-# model; flip the default once measured in-frame).
-PAYLOAD_PAIRED = os.environ.get("TRTPU_PAYLOAD_PAIRED", "0") == "1"
+# warps per tile program: 1024 pixels over 4 warps is 8 pixels a thread
+NUM_WARPS = 4
+
+# Draw-class flag folded into the id slot, so the passes of one frame
+# share ONE binning sort and filter per record (ids < 2^24 stay exact in
+# f32 either way).
+CLASS_SHIFT = 22
+CLASS_BIT = 1 << CLASS_SHIFT  # tri ids must stay below 2^22 (f32-exact
+# encoding of tri + CLASS_BIT * class for classes 0..3)
 
 # output channel order (each [n_tiles, TILE_H, TILE_W] f32 unless noted)
 GBUF_CHANNELS = (
@@ -75,11 +78,13 @@ GBUF_CHANNELS = (
     "material",  # int32
     "scale",
 )
+# the visibility-buffer variant's channels (``visibility=True``)
+VIS_CHANNELS = ("tri", "depth", "b1", "b2")
 
 # position-derivative channels only feed normal mapping's cotangent frame
 # (render/shading.py; shader/src/lighting.rs:243-259) — a pass whose
 # materials use no normal_map texture skips computing and storing them
-# (``pos_derivs=False``), ~1/4 of the per-record interpolation work
+# (``pos_derivs=False``)
 DPOS_CHANNELS = (
     "dposdx_x", "dposdx_y", "dposdx_z",
     "dposdy_x", "dposdy_y", "dposdy_z",
@@ -91,6 +96,7 @@ UV_CHANNELS = (
     "uv_u", "uv_v",
     "duvdx_u", "duvdx_v", "duvdy_u", "duvdy_v",
 )
+_INT_CHANNELS = ("tri", "material")
 
 
 def active_channels(pos_derivs: bool, uv_channels: bool = True) -> tuple:
@@ -121,7 +127,7 @@ def pack_gbuf_payload(
         ids = ids + CLASS_BIT * class_flags.astype(jnp.int32)
     attr8 = jnp.concatenate([world_positions, world_normals, uvs], axis=1)
     v = attr8[tri_vertices]  # [T, 3, 8]
-    rec = jnp.concatenate(
+    return jnp.concatenate(
         [
             setup.adj.reshape(t, 9),
             setup.z_clip,
@@ -134,259 +140,195 @@ def pack_gbuf_payload(
         ],
         axis=1,
     )
-    return rec
+
+
+def pack_vis_payload(
+    setup: TriangleSetup, class_flags: jnp.ndarray | None = None
+) -> jnp.ndarray:
+    """[T, 64] records carrying only the race fields (the visibility
+    variant reads nothing past [15])."""
+    t = setup.adj.shape[0]
+    assert t <= CLASS_BIT, f"{t} records exceed the 2^22 tri-id field"
+    ids = jnp.arange(t, dtype=jnp.int32)
+    if class_flags is not None:
+        ids = ids + CLASS_BIT * class_flags.astype(jnp.int32)
+    return jnp.concatenate(
+        [
+            setup.adj.reshape(t, 9),
+            setup.z_clip,
+            setup.w_clip,
+            ids.astype(jnp.float32)[:, None],
+            jnp.zeros((t, REC_F32 - 16), jnp.float32),
+        ],
+        axis=1,
+    )
 
 
 def gather_gbuf_payload(records: jnp.ndarray, bins: TileBins):
-    """Sorted/big payload rows for the kernel ([R, 128] lane-aligned)."""
-    t = records.shape[0]
+    """The kernel's record inputs: (records + the degenerate record at
+    index T, the sorted record stream, the big-triangle list). Record
+    scalars are read by triangle id straight from the table, so no
+    per-pair payload copy is made."""
     degenerate = jnp.zeros((1, REC_F32), jnp.float32).at[0, 15].set(-1.0)
-    rec_ext = jnp.concatenate([records, degenerate], axis=0)
-    sorted_ids = jnp.where(bins.sorted_tri_ids >= 0, bins.sorted_tri_ids, t)
-    big_ids = jnp.where(bins.big_tri_ids >= 0, bins.big_tri_ids, t)
-
-    if PAYLOAD_PAIRED:
-        n = rec_ext.shape[0]
-        paired = jnp.pad(rec_ext, ((0, (-n) % 2), (0, 0)))
-        paired = paired.reshape(-1, 2 * REC_F32)  # [ceil/2, 128]: no pad
-
-        def fetch(ids):
-            rows = jax.lax.optimization_barrier(paired[ids >> 1])
-            odd = (ids & 1).astype(bool)[:, None]
-            return jnp.where(odd, rows[:, REC_F32:], rows[:, :REC_F32])
-
-    else:
-
-        def fetch(ids):
-            return rec_ext[ids]
-
-    def pack_rows(recs, extra_pad):
-        n = recs.shape[0]
-        pad = (-n) % RECS_PER_ROW
-        recs = jnp.pad(recs, ((0, pad), (0, 0)))
-        rows = recs.reshape(-1, 128)
-        if extra_pad:
-            rows = jnp.pad(rows, ((0, extra_pad), (0, 0)))
-        return rows
-
     return (
-        pack_rows(fetch(sorted_ids), CHUNK_ROWS),
-        pack_rows(fetch(big_ids), 0),
+        jnp.concatenate([records, degenerate], axis=0),
+        bins.sorted_tri_ids.astype(jnp.int32),
+        bins.big_tri_ids.astype(jnp.int32),
     )
 
 
 def _kernel(
-    # scalar prefetch
     tile_start_ref,  # i32[num_classes * n_tiles_global + 1] (global)
     tile_ids_ref,  # i32[K] global tile ids for this call
-    big_count_ref,
-    # inputs
-    payload_hbm,  # ANY (HBM)
-    big_payload_ref,  # SMEM
-    init_depth_ref,  # VMEM [1, TILE_H, TILE_W]
-    max_depth_ref,  # VMEM [1, TILE_H, TILE_W] (peeling bound; all-inf when off)
-    # outputs: one per-tile block per active channel
+    big_count_ref,  # i32[1]
+    rec_ref,  # f32[T + 1, 64] record table (degenerate record at T)
+    sorted_ref,  # i32[S] tri ids sorted by (bin, tri); -1 = empty slot
+    big_ref,  # i32[B] big-triangle ids; -1 = empty slot
     *refs,
     tiles_x: int,
     width: int,
     height: int,
     pass_class: int | None,
     num_classes: int,
+    has_init: bool,
     use_max_depth: bool,
-    pos_derivs: bool,
-    uv_channels: bool,
+    names: tuple,
+    visibility: bool,
 ):
-    names = active_channels(pos_derivs, uv_channels)
-    outs = refs[:len(names)]
-    chunk_ref, sems = refs[len(names)], refs[len(names) + 1]
-    # VMEM accumulators live in the output blocks directly; statically
-    # disabled channels (see DPOS_CHANNELS / UV_CHANNELS) have no ref.
-    ch = dict(zip(names, outs))
-    get = ch.get
-    tri_o, depth_o = ch["tri"], ch["depth"]
-    px_o, py_o, pz_o = ch["pos_x"], ch["pos_y"], ch["pos_z"]
-    nx_o, ny_o, nz_o = ch["nrm_x"], ch["nrm_y"], ch["nrm_z"]
-    u_o, v_o = get("uv_u"), get("uv_v")
-    duxu_o, duxv_o = get("duvdx_u"), get("duvdx_v")
-    duyu_o, duyv_o = get("duvdy_u"), get("duvdy_v")
-    dpxx_o, dpxy_o, dpxz_o = (
-        get("dposdx_x"), get("dposdx_y"), get("dposdx_z"))
-    dpyx_o, dpyy_o, dpyz_o = (
-        get("dposdy_x"), get("dposdy_y"), get("dposdy_z"))
-    mat_o, scale_o = ch["material"], ch["scale"]
+    refs = list(refs)
+    init_ref = refs.pop(0) if has_init else None
+    maxd_ref = refs.pop(0) if use_max_depth else None
+    ch = dict(zip(names, refs))
+    degenerate = rec_ref.shape[0] - 1
 
     t = pl.program_id(0)
     tile_id = tile_ids_ref[t]
     ty = tile_id // tiles_x
     tx = tile_id % tiles_x
 
-    rows_f = jax.lax.broadcasted_iota(jnp.int32, (TILE_H, TILE_W), 0).astype(
-        jnp.float32
-    )
-    cols_f = jax.lax.broadcasted_iota(jnp.int32, (TILE_H, TILE_W), 1).astype(
-        jnp.float32
-    )
+    shape = (TILE_H, TILE_W)
+    rows_f = jax.lax.broadcasted_iota(jnp.int32, shape, 0).astype(jnp.float32)
+    cols_f = jax.lax.broadcasted_iota(jnp.int32, shape, 1).astype(jnp.float32)
     pxc = tx.astype(jnp.float32) * TILE_W + cols_f + 0.5
     pyc = ty.astype(jnp.float32) * TILE_H + rows_f + 0.5
     nx = pxc * (2.0 / width) - 1.0
     ny = pyc * (2.0 / height) - 1.0
 
-    zero = jnp.zeros((TILE_H, TILE_W), jnp.float32)
-    tri_o[0] = jnp.full((TILE_H, TILE_W), -1, jnp.int32)
-    depth_o[0] = init_depth_ref[0]
-    for ref in (px_o, py_o, pz_o, nx_o, ny_o, u_o, v_o, duxu_o, duxv_o,
-                duyu_o, duyv_o, dpxx_o, dpxy_o, dpxz_o, dpyx_o, dpyy_o,
-                dpyz_o, mat_o):
-        if ref is None:
-            continue
-        if ref is mat_o:
-            ref[0] = jnp.zeros((TILE_H, TILE_W), jnp.int32)
-        else:
-            ref[0] = zero
-    nz_o[0] = zero + 1.0  # background normal = +z (gbuffer convention)
-    scale_o[0] = zero + 1.0
+    init_depth = (
+        init_ref[...] if has_init else jnp.zeros(shape, jnp.float32)
+    )
+    max_depth = maxd_ref[...] if use_max_depth else None
 
     # class-split bins: tile T's records live at bins [nc*T, nc*T+nc);
     # a single-class pass streams only its run. Indexed by the GLOBAL
     # tile id so arbitrary tile lists (bands, failing-tile re-races)
-    # share one tile_start. (Big records are always class-mixed and rely
-    # on the per-record filter below.)
+    # share one tile_start. (Big records are class-mixed and rely on the
+    # per-record class filter below.)
     if num_classes == 1:
-        start = tile_start_ref[tile_id]
-        count = tile_start_ref[tile_id + 1] - start
+        lo = tile_start_ref[tile_id]
+        hi = tile_start_ref[tile_id + 1]
     elif pass_class is None:
-        start = tile_start_ref[num_classes * tile_id]
-        count = tile_start_ref[num_classes * tile_id + num_classes] - start
+        lo = tile_start_ref[num_classes * tile_id]
+        hi = tile_start_ref[num_classes * tile_id + num_classes]
     else:
-        start = tile_start_ref[num_classes * tile_id + pass_class]
-        count = tile_start_ref[num_classes * tile_id + pass_class + 1] - start
+        lo = tile_start_ref[num_classes * tile_id + pass_class]
+        hi = tile_start_ref[num_classes * tile_id + pass_class + 1]
 
-    def record_body(ref, row, off):
-        # KEEP IN SYNC with raster_pallas.py::record_body: the decode /
-        # edge-function / top-left-rule / depth-race core is identical
-        # by contract (differences: 64-f32 records, 4-class filter, and
-        # the attribute-interpolation tail). A raster-rule fix applied
-        # to one kernel MUST be applied to the other.
-        rec = lambda k: ref[row, off + k]
-        a0, b0, c0 = rec(0), rec(1), rec(2)
-        a1, b1_, c1 = rec(3), rec(4), rec(5)
-        a2, b2_, c2 = rec(6), rec(7), rec(8)
-        z0, z1, z2 = rec(9), rec(10), rec(11)
-        w0, w1, w2 = rec(12), rec(13), rec(14)
-        tri_enc = rec(15).astype(jnp.int32)
-        cls = tri_enc >> CLASS_SHIFT
-        tri = tri_enc & (CLASS_BIT - 1)
-        # the degenerate pad record encodes tri = -1: keep it negative
-        tri = jnp.where(tri_enc < 0, tri_enc, tri)
+    def edges(r):
+        """The three edge functions of record ``r`` (scalar or per-pixel)
+        and its adjugate coefficients."""
+        a = [rec_ref[r, 3 * i] for i in range(3)]
+        b = [rec_ref[r, 3 * i + 1] for i in range(3)]
+        c = [rec_ref[r, 3 * i + 2] for i in range(3)]
+        e = [a[i] * nx + b[i] * ny + c[i] for i in range(3)]
+        return e, a, b
 
-        e0 = a0 * nx + b0 * ny + c0
-        e1 = a1 * nx + b1_ * ny + c1
-        e2 = a2 * nx + b2_ * ny + c2
+    def race(tid, carry):
+        best_d, best_t = carry
+        r = jnp.where(tid >= 0, tid, degenerate)
+        e, a, b = edges(r)
 
-        def covered(e, a, b):
-            tl = (a > 0) | ((a == 0) & (b > 0))
-            return (e > 0) | ((e == 0) & tl)
+        def covered(e_, a_, b_):
+            tl = (a_ > 0) | ((a_ == 0) & (b_ > 0))
+            return (e_ > 0) | ((e_ == 0) & tl)
 
-        inside = (
-            covered(e0, a0, b0) & covered(e1, a1, b1_) & covered(e2, a2, b2_)
-        )
-        w_int = e0 * w0 + e1 * w1 + e2 * w2
-        z_int = e0 * z0 + e1 * z1 + e2 * z2
+        inside = covered(e[0], a[0], b[0])
+        inside &= covered(e[1], a[1], b[1])
+        inside &= covered(e[2], a[2], b[2])
+        w = [rec_ref[r, 12 + i] for i in range(3)]
+        z = [rec_ref[r, 9 + i] for i in range(3)]
+        w_int = e[0] * w[0] + e[1] * w[1] + e[2] * w[2]
+        z_int = e[0] * z[0] + e[1] * z[1] + e[2] * z[2]
         depth = z_int / w_int
         inside &= (w_int > 0) & (depth >= 0.0) & (depth <= 1.0)
         if pass_class is not None:
-            inside &= cls == pass_class
-
-        win = inside & (depth > depth_o[0])
+            tri_enc = rec_ref[r, 15].astype(jnp.int32)
+            inside &= (tri_enc >> CLASS_SHIFT) == pass_class
+        win = inside & (
+            (depth > best_d) | ((depth == best_d) & (r < best_t))
+        )
         if use_max_depth:
             # depth-peeling bound: fragments at/above the rejected layer
             # stay excluded (render/frame.py::_rasterize_clip_peeled)
-            win &= depth < max_depth_ref[0]
+            win &= depth < max_depth
+        return jnp.where(win, depth, best_d), jnp.where(win, r, best_t)
 
-        d_sum = e0 + e1 + e2
+    carry = (init_depth, jnp.full(shape, -1, jnp.int32))
+    carry = jax.lax.fori_loop(
+        0, big_count_ref[0], lambda j, c: race(big_ref[j], c), carry
+    )
+    best_d, best_t = jax.lax.fori_loop(
+        lo, hi, lambda j, c: race(sorted_ref[j], c), carry
+    )
+
+    # ---- one record gather per pixel: the winner's channels ------------
+    valid = best_t >= 0
+    r = jnp.maximum(best_t, 0)
+    e, a, b = edges(r)
+    d_sum = e[0] + e[1] + e[2]
+    out = {"tri": best_t, "depth": best_d}
+    if visibility:
+        out["b1"] = jnp.where(valid, e[1] / d_sum, 0.0)
+        out["b2"] = jnp.where(valid, e[2] / d_sum, 0.0)
+    else:
         inv_d = 1.0 / d_sum
-        a_sum = a0 + a1 + a2
-        b_sum = b0 + b1_ + b2_
+        a_sum = a[0] + a[1] + a[2]
+        b_sum = b[0] + b[1] + b[2]
         inv_d2x = inv_d * inv_d * (2.0 / width)
         inv_d2y = inv_d * inv_d * (2.0 / height)
-
-        def store(out_ref, val):
-            out_ref[0] = jnp.where(win, val, out_ref[0])
-
-        # 8 attribute channels: v0 at 16.., v1 at 24.., v2 at 32..
-        attr_outs = (px_o, py_o, pz_o, nx_o, ny_o, nz_o, u_o, v_o)
-        dx_outs = (dpxx_o, dpxy_o, dpxz_o, None, None, None, duxu_o, duxv_o)
-        dy_outs = (dpyx_o, dpyy_o, dpyz_o, None, None, None, duyu_o, duyv_o)
+        attr = ("pos_x", "pos_y", "pos_z", "nrm_x", "nrm_y", "nrm_z",
+                "uv_u", "uv_v")
+        dx = ("dposdx_x", "dposdx_y", "dposdx_z", None, None, None,
+              "duvdx_u", "duvdx_v")
+        dy = ("dposdy_x", "dposdy_y", "dposdy_z", None, None, None,
+              "duvdy_u", "duvdy_v")
         for k in range(8):
-            if attr_outs[k] is None and dx_outs[k] is None:
+            if attr[k] not in ch:
                 continue
-            A0, A1, A2 = rec(16 + k), rec(24 + k), rec(32 + k)
-            n_attr = e0 * A0 + e1 * A1 + e2 * A2
-            if attr_outs[k] is not None:
-                store(attr_outs[k], n_attr * inv_d)
-            if dx_outs[k] is not None:
-                na = a0 * A0 + a1 * A1 + a2 * A2
-                nb = b0 * A0 + b1_ * A1 + b2_ * A2
-                store(dx_outs[k], (na * d_sum - n_attr * a_sum) * inv_d2x)
-                store(dy_outs[k], (nb * d_sum - n_attr * b_sum) * inv_d2y)
-
-        store(tri_o, tri)
-        store(mat_o, rec(40).astype(jnp.int32))
-        store(scale_o, rec(41))
-        # depth LAST (the win mask reads depth_o)
-        store(depth_o, depth)
-
-    def big_body(j, _):
-        record_body(
-            big_payload_ref, j // RECS_PER_ROW, (j % RECS_PER_ROW) * REC_F32
-        )
-        return 0
-
-    jax.lax.fori_loop(0, big_count_ref[0], big_body, 0)
-
-    row0 = start // RECS_PER_ROW
-    rem = start - row0 * RECS_PER_ROW
-    total = rem + count
-    chunk_recs = CHUNK_ROWS * RECS_PER_ROW
-    num_chunks = pl.cdiv(total, chunk_recs)
-
-    def get_dma(slot, ci):
-        return pltpu.make_async_copy(
-            payload_hbm.at[pl.ds(row0 + ci * CHUNK_ROWS, CHUNK_ROWS)],
-            chunk_ref.at[slot],
-            sems.at[slot],
-        )
-
-    @pl.when(num_chunks > 0)
-    def _():
-        get_dma(0, 0).start()
-
-    def chunk_body(ci, _):
-        slot = ci % 2
-
-        @pl.when(ci + 1 < num_chunks)
-        def _():
-            get_dma(1 - slot, ci + 1).start()
-
-        get_dma(slot, ci).wait()
-        l_lo = jnp.maximum(rem - ci * chunk_recs, 0)
-        l_hi = jnp.minimum(total - ci * chunk_recs, chunk_recs)
-
-        def rec_loop(l, _):
-            record_body(
-                chunk_ref.at[slot], l // RECS_PER_ROW,
-                (l % RECS_PER_ROW) * REC_F32,
-            )
-            return 0
-
-        jax.lax.fori_loop(l_lo, l_hi, rec_loop, 0)
-        return 0
-
-    jax.lax.fori_loop(0, num_chunks, chunk_body, 0)
+            av = [rec_ref[r, 16 + 8 * i + k] for i in range(3)]
+            n_attr = e[0] * av[0] + e[1] * av[1] + e[2] * av[2]
+            out[attr[k]] = n_attr * inv_d
+            if dx[k] is not None and dx[k] in ch:
+                na = a[0] * av[0] + a[1] * av[1] + a[2] * av[2]
+                nb = b[0] * av[0] + b[1] * av[1] + b[2] * av[2]
+                out[dx[k]] = (na * d_sum - n_attr * a_sum) * inv_d2x
+                out[dy[k]] = (nb * d_sum - n_attr * b_sum) * inv_d2y
+        out["material"] = rec_ref[r, 40].astype(jnp.int32)
+        out["scale"] = rec_ref[r, 41]
+        # cleared-pixel values (the G-buffer convention: background
+        # normal = +z, scale 1, every other channel 0)
+        cleared = {"nrm_z": 1.0, "scale": 1.0}
+        for name in names:
+            if name not in ("tri", "depth"):
+                out[name] = jnp.where(
+                    valid, out[name], cleared.get(name, 0)
+                ).astype(out[name].dtype)
+    for name in names:
+        ch[name][...] = out[name]
 
 
 def rasterize_gbuffer_tiles(
-    payload: tuple,  # (payload_rows, big_rows) from gather_gbuf_payload
+    payload: tuple,  # from gather_gbuf_payload
     tile_ids: jnp.ndarray,  # [K] global tile ids handled by this call
     tile_start: jnp.ndarray,  # [num_classes * n_tiles_global + 1] (GLOBAL)
     big_count: jnp.ndarray,  # [] int32 (already clamped)
@@ -400,88 +342,109 @@ def rasterize_gbuffer_tiles(
     # beyond the frame (the sharded path bins over a band-aligned grid)
     pos_derivs: bool = True,
     uv_channels: bool = True,
+    visibility: bool = False,
+    name: str = "raster_tiles",
 ) -> dict:
-    """Run the G-buffer kernel over an arbitrary tile list (the building
-    block shared by the single-chip frame, the row-band sharded path, and
-    the alpha-clip peeling re-races). ``tile_start`` is the GLOBAL bins
+    """Run the kernel over an arbitrary tile list (the building block
+    shared by the single-chip frame, the row-band sharded path, and the
+    alpha-clip peeling re-races). ``tile_start`` is the GLOBAL bins
     array; the per-tile class count is inferred from its length. Returns
     {channel: [K, TILE_H, TILE_W]} (no dpos channels when
-    ``pos_derivs=False`` — see DPOS_CHANNELS)."""
+    ``pos_derivs=False`` — see DPOS_CHANNELS; VIS_CHANNELS when
+    ``visibility``). ``name`` names the compiled kernel; callers pass
+    their pass_scope so profiler traces attribute the kernel to its
+    pass (tools/pass_timing.py)."""
     k_tiles = tile_ids.shape[0]
+    if interpret and k_tiles == 1:
+        # interpreted, a one-program grid loses its loop: XLA fuses the
+        # body with its neighbours and contracts other multiply-adds into
+        # FMAs, so the tile would round differently than in a longer
+        # list. Two programs keep every tile list bit-identical.
+        tile_ids, init_depth_tiles, max_depth_tiles = (
+            None if a is None else jnp.concatenate([a, a])
+            for a in (tile_ids, init_depth_tiles, max_depth_tiles)
+        )
     tiles_x = -(-width // TILE_W)
     tiles_y = -(-height // TILE_H)
     if n_tiles_global is None:
         n_tiles_global = tiles_x * tiles_y
     num_classes = (tile_start.shape[0] - 1) // n_tiles_global
-    payload_rows, big_rows = payload
-    init_tiles = (
-        init_depth_tiles
-        if init_depth_tiles is not None
-        else jnp.zeros((k_tiles, TILE_H, TILE_W), jnp.float32)
-    )
-    use_max_depth = max_depth_tiles is not None
-    maxd_tiles = (
-        max_depth_tiles
-        if use_max_depth
-        else jnp.zeros((1, TILE_H, TILE_W), jnp.float32)
+    records, sorted_ids, big_ids = payload
+    names = (
+        VIS_CHANNELS if visibility
+        else active_channels(pos_derivs, uv_channels)
     )
 
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        grid=(k_tiles,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(
-                big_rows.shape, lambda t, *_: (0, 0), memory_space=pltpu.SMEM
-            ),
-            pl.BlockSpec((1, TILE_H, TILE_W), lambda t, *_: (t, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(
-                (1, TILE_H, TILE_W),
-                (lambda t, *_: (t, 0, 0)) if use_max_depth else (lambda t, *_: (0, 0, 0)),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, TILE_H, TILE_W), lambda t, *_: (t, 0, 0),
-                         memory_space=pltpu.VMEM)
-            for _ in range(len(active_channels(pos_derivs, uv_channels)))
-        ],
-        scratch_shapes=[
-            pltpu.SMEM((2, CHUNK_ROWS, 128), jnp.float32),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
-    )
-    out_shapes = [
-        jax.ShapeDtypeStruct(
-            (k_tiles, TILE_H, TILE_W),
-            jnp.int32 if name in ("tri", "material") else jnp.float32,
-        )
-        for name in active_channels(pos_derivs, uv_channels)
+    def whole(a):
+        return pl.BlockSpec(a.shape, lambda t: (0,) * a.ndim)
+
+    tile_spec = pl.BlockSpec((None, TILE_H, TILE_W), lambda t: (t, 0, 0))
+    big_count = jnp.reshape(big_count, (1,)).astype(jnp.int32)
+    args = [
+        tile_start.astype(jnp.int32), tile_ids.astype(jnp.int32), big_count,
+        records, sorted_ids, big_ids,
     ]
+    in_specs = [whole(a) for a in args]
+    for extra in (init_depth_tiles, max_depth_tiles):
+        if extra is not None:
+            args.append(extra)
+            in_specs.append(tile_spec)
     kernel = functools.partial(
         _kernel, tiles_x=tiles_x, width=width, height=height,
         pass_class=pass_class, num_classes=num_classes,
-        use_max_depth=use_max_depth, pos_derivs=pos_derivs,
-        uv_channels=uv_channels,
+        has_init=init_depth_tiles is not None,
+        use_max_depth=max_depth_tiles is not None, names=names,
+        visibility=visibility,
     )
     outs = pl.pallas_call(
         kernel,
-        grid_spec=grid_spec,
-        out_shape=out_shapes,
+        grid=(tile_ids.shape[0],),
+        in_specs=in_specs,
+        out_specs=[tile_spec] * len(names),
+        out_shape=[
+            jax.ShapeDtypeStruct(
+                (tile_ids.shape[0], TILE_H, TILE_W),
+                jnp.int32 if name in _INT_CHANNELS else jnp.float32,
+            )
+            for name in names
+        ],
         interpret=interpret,
-    )(
-        tile_start.astype(jnp.int32),
-        tile_ids,
-        big_count[None] if big_count.ndim == 0 else big_count,
-        payload_rows,
-        big_rows,
-        init_tiles,
-        maxd_tiles,
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(
+            num_warps=NUM_WARPS, num_stages=1
+        ),
+        name=name,
+    )(*args)
+    return {name: a[:k_tiles] for name, a in zip(names, outs)}
+
+
+def _frame_tiles(bins: TileBins, width, height, init_depth, interpret,
+                 pass_class, payload, **kw):
+    """Full-frame kernel run -> {channel: [H, W]}."""
+    from transmission_renderer_tpu.ops.raster import tile_image, untile_image
+
+    tiles_x = -(-width // TILE_W)
+    tiles_y = -(-height // TILE_H)
+    init_tiles = (
+        tile_image(init_depth, TILE_W, TILE_H) if init_depth is not None
+        else None
+    )
+    n_big = bins.big_tri_ids.shape[0]
+    # a length-1 all(-1) big list means big tris ride the sorted stream
+    big_count = (
+        jnp.zeros((), jnp.int32)
+        if n_big <= 1
+        else jnp.minimum(bins.big_tri_count, n_big).astype(jnp.int32)
+    )
+    raw = rasterize_gbuffer_tiles(
+        payload, jnp.arange(tiles_x * tiles_y, dtype=jnp.int32),
+        bins.tile_start, big_count, width, height,
+        init_depth_tiles=init_tiles, pass_class=pass_class,
+        interpret=interpret, **kw,
     )
     return {
-        name: a
-        for name, a in zip(active_channels(pos_derivs, uv_channels), outs)
+        name: untile_image(a, tiles_x, tiles_y, TILE_W, TILE_H, width, height)
+        for name, a in raw.items()
     }
 
 
@@ -492,43 +455,45 @@ def rasterize_gbuffer_pallas(
     height: int,
     init_depth: jnp.ndarray | None = None,
     pass_class: int | None = None,
-    payload=None,  # optional precomputed (rows, big_rows)
+    payload=None,  # optional precomputed gather_gbuf_payload result
     interpret: bool = False,
     pos_derivs: bool = True,
     uv_channels: bool = True,
+    name: str = "raster_tiles",
 ):
     """Full-frame G-buffer raster. Returns a render.gbuffer.GBuffer."""
-    from transmission_renderer_tpu.ops.raster import tile_image, untile_image
-
-    tiles_x = -(-width // TILE_W)
-    tiles_y = -(-height // TILE_H)
-    n_tiles = tiles_x * tiles_y
-    tile_ids = jnp.arange(n_tiles, dtype=jnp.int32)
     payload = (
         payload if payload is not None else gather_gbuf_payload(records, bins)
     )
-    init_tiles = (
-        tile_image(init_depth, TILE_W, TILE_H) if init_depth is not None else None
+    ch = _frame_tiles(
+        bins, width, height, init_depth, interpret, pass_class, payload,
+        pos_derivs=pos_derivs, uv_channels=uv_channels, name=name,
     )
-    n_big_recs = bins.big_tri_ids.shape[0]
-    # a length-1 all(-1) big list means big tris ride the sorted stream
-    big_count = (
-        jnp.zeros((), jnp.int32)
-        if n_big_recs <= 1
-        else jnp.minimum(bins.big_tri_count, n_big_recs).astype(jnp.int32)
-    )
-
-    raw = rasterize_gbuffer_tiles(
-        payload, tile_ids, bins.tile_start, big_count, width, height,
-        init_depth_tiles=init_tiles, pass_class=pass_class,
-        interpret=interpret, pos_derivs=pos_derivs, uv_channels=uv_channels,
-    )
-
-    def ut(a):
-        return untile_image(a, tiles_x, tiles_y, TILE_W, TILE_H, width, height)
-
-    ch = {name: ut(a) for name, a in raw.items()}
     return gbuffer_from_channels(ch)
+
+
+def rasterize_visibility_pallas(
+    setup: TriangleSetup,
+    bins: TileBins,
+    width: int,
+    height: int,
+    init_depth: jnp.ndarray | None = None,
+    interpret: bool = False,
+    pass_class: int | None = None,
+):
+    """Full-frame visibility buffer through the same kernel — the
+    kernel's counterpart of ops/raster.py::rasterize."""
+    from transmission_renderer_tpu.ops.raster import VisibilityBuffer
+
+    payload = gather_gbuf_payload(pack_vis_payload(setup), bins)
+    ch = _frame_tiles(
+        bins, width, height, init_depth, interpret, pass_class, payload,
+        visibility=True,
+    )
+    return VisibilityBuffer(
+        tri_id=ch["tri"], depth=ch["depth"],
+        bary=jnp.stack([ch["b1"], ch["b2"]], axis=-1),
+    )
 
 
 def gbuffer_from_channels(ch: dict):

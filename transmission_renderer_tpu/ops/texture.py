@@ -3,14 +3,13 @@
 Replaces Vulkan sampler hardware (SURVEY.md §2.5 "Texture sampling"):
 bilinear + trilinear filtering, REPEAT / CLAMP_TO_EDGE wrap, sRGB decode.
 All sampling is explicit-LOD; implicit-LOD call sites compute LODs from
-analytic UV derivatives in the deferred shading pass (the TPU analogue of
+analytic UV derivatives in the deferred shading pass (the analogue of
 ddx/ddy, SURVEY.md §2.5 "derivative hardware").
 
 The atlas stores each mip level as 2x2 blocks in four phase-shifted copies
 (scene/textures.py), so one bilinear tap is ONE row gather and trilinear
-is two; QUAD_GROUP consecutive blocks pack into each physical row because
-TPU gather cost scales with table ROW COUNT, nearly independent of row
-width (the sub-block select is register work).
+is two; QUAD_GROUP consecutive blocks pack into each physical row to cut
+the table's row count (the sub-block select is register work).
 
 Conventions match Vulkan: texel centres at integer+0.5, LOD0 = full res.
 """
@@ -127,8 +126,8 @@ def _fetch_block(quads, qoff, width, height, uv, wrap_mode, classes=None,
         shift = group.bit_length() - 1
         grp = quads[qidx >> shift]  # [..., G, blkw]
         # materialise the WIDE row gather before the sub-block select:
-        # fused, XLA re-splits it into G strided gathers and the row
-        # grouping regresses 2-10x (docs/PERFORMANCE.md)
+        # fused, XLA re-splits it into G strided gathers (ROADMAP D2:
+        # re-check on the GPU)
         grp = jax.lax.optimization_barrier(grp)
         sub = qidx & (group - 1)
         blk = grp[..., 0, :]
@@ -212,7 +211,7 @@ def _level_meta_from_rows(rows: jnp.ndarray, level: jnp.ndarray):
 
     Level sizes are the closed form max(size0 >> level, 1); offsets come
     from a static select chain over the (small, static) mip count — both
-    nearly-free VPU work vs per-pixel gathers.
+    arithmetic instead of per-pixel gathers.
     """
     num_mips = rows[..., 0]
     level = jnp.clip(level, 0, num_mips - 1)
@@ -416,45 +415,6 @@ def quad_lut_2ch(lut: jnp.ndarray) -> jnp.ndarray:
     if pad:
         q = jnp.pad(q, ((0, pad), (0, 0)))
     return q.reshape(-1, 8 * QUAD_GROUP)
-
-
-def lut_2ch_fetch_parts(
-    quads: jnp.ndarray,  # [*, 8 * QUAD_GROUP] from quad_lut_2ch
-    size: int,  # S (static)
-    u: jnp.ndarray,
-    v: jnp.ndarray,
-):
-    """sample_lut_2ch_quad's gather + footprint halves for the Pallas
-    fetch-finish kernel (ops/tap_finish.py): (rows, sub, fx, fy) with
-    identical coordinate math; the sub-block select + lerp run
-    in-register instead of through the optimization_barrier relayout.
-
-    Flat [M] inputs with M % 128 == 0 run the index chain on
-    [M/128, 128] 2-D shapes (flat s32 chains lay out T(1,128) — ~8x VPU
-    waste; see tap_finish.sample_bundle_planes) and return flat."""
-    two_d = u.ndim == 1 and u.shape[0] % 128 == 0 and u.shape[0] > 0
-    if two_d:
-        m = u.shape[0]
-        u = u.reshape(m // 128, 128)
-        v = v.reshape(m // 128, 128)
-    s = size
-    x = jnp.clip(u * s - 0.5, 0.0, s - 1.0)
-    y = jnp.clip(v * s - 0.5, 0.0, s - 1.0)
-    x0 = jnp.floor(x).astype(jnp.int32)
-    y0 = jnp.floor(y).astype(jnp.int32)
-    fx = x - x0.astype(jnp.float32)
-    fy = y - y0.astype(jnp.float32)
-    b = (s + 1) >> 1
-    phase = (y0 & 1) * 2 + (x0 & 1)
-    qidx = phase * (b * b) + (y0 >> 1) * b + (x0 >> 1)
-    ridx = qidx >> QUAD_GROUP_SHIFT
-    sub = qidx & (QUAD_GROUP - 1)
-    if two_d:
-        ridx = jax.lax.optimization_barrier(ridx).reshape(m)
-        sub = sub.reshape(m)
-        fx = fx.reshape(m)
-        fy = fy.reshape(m)
-    return quads[ridx], sub, fx, fy
 
 
 def sample_lut_2ch_quad(

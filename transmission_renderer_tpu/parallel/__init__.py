@@ -1,10 +1,10 @@
-"""Multi-chip scaling over an ICI mesh.
+"""Multi-device scaling over a device mesh.
 
 The reference is single-GPU; its 'communication backend' is the Vulkan
-queue + barriers (SURVEY.md §2.6, §5.8). The TPU build's one real
-distributed feature (per the BASELINE.json north star) is a framebuffer
-sharded row-band-wise across chips via ``shard_map``, with collectives for
-the cross-band data the transmission pass needs.
+queue + barriers (SURVEY.md §2.6, §5.8). This renderer's one real
+distributed feature is a framebuffer sharded row-band-wise across devices
+via ``shard_map``, with collectives for the cross-band data the
+transmission pass needs.
 """
 
 from transmission_renderer_tpu.parallel.sharded import (  # noqa: F401

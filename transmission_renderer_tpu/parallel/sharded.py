@@ -113,7 +113,10 @@ from transmission_renderer_tpu.render.shading import (
 )
 from transmission_renderer_tpu.scene.types import Scene, Similarity, quat_rotate, similarity_apply
 from transmission_renderer_tpu.utils.ggx_lut import default_ggx_lut
-from transmission_renderer_tpu.utils.platform import f32_matmuls
+from transmission_renderer_tpu.utils.platform import (
+    f32_matmuls,
+    use_raster_kernel,
+)
 
 
 def make_band_mesh(n_devices: int | None = None) -> Mesh:
@@ -364,10 +367,7 @@ def render_frame_sharded(
     tiles_y_padded = rows_per_band * n_bands
     h_padded = band_h * n_bands
 
-    use_pallas = config.use_pallas_raster
-    if use_pallas is None:
-        use_pallas = jax.default_backend() != "cpu" and (tw, th) == (128, 8)
-    use_kernel = use_pallas
+    use_kernel = use_raster_kernel(config)
 
     # projection-static cluster data, cached per config and shared
     # (bitwise) with the single-chip renderer — see render/frame.py
@@ -437,12 +437,6 @@ def render_frame_sharded(
             ggx_lut_quads=lut_quads,
             fused_trilinear=flags.atlas_pot and _tx.ATLAS_FUSED,
             bf16_lights=config.bf16_light_math,
-            pallas_shade=(
-                use_pallas
-                if config.pallas_shade is None
-                else config.pallas_shade
-            ),
-            pallas_interpret=config.pallas_interpret,
         )
 
         t0 = band * rows_per_band * tiles_x
@@ -523,18 +517,8 @@ def render_frame_sharded(
                 )
                 return shadow_factors(
                     bvh_f, dl.tri_vtx, world_pos, g_band, params.sun_dir,
-                    lights, light_active=mask, packet_swizzle="2d",
+                    lights, light_active=mask,
                 )
-
-        def band_block_meta():
-            """Global (py, px0) of the band's flat 128-px blocks — the
-            fused shade kernel's per-block cluster-candidate meta (valid
-            because band rows are single-row segments at w % 128 == 0)."""
-            if w % 128:
-                return None, None
-            bpr = w // 128
-            bid = jnp.arange((band_h * w) // 128, dtype=jnp.int32)
-            return row0_px + bid // bpr, (bid % bpr) * 128
 
         def shade_band(g_band, shade_fn, ctx, *extra):
             px, py = _dense_coords(band_h, w)
@@ -544,10 +528,9 @@ def render_frame_sharded(
                     sun_shadow_factor=sun_f.reshape(-1),
                     light_shadow_factors=light_f.reshape(-1, lights.num),
                 )
-            bk_py, bk_px0 = band_block_meta()
             out = shade_fn(
                 scene, flatten_gbuffer(g_band), ctx, *extra, px,
-                py + row0_px, block_py=bk_py, block_px0=bk_px0,
+                py + row0_px,
             )
             return out.reshape(band_h, w, 3)
 
@@ -555,6 +538,7 @@ def render_frame_sharded(
         diag = {
             "big": jnp.int32(0), "mid": jnp.int32(0),
             "clip_unresolved": jnp.int32(0), "bin": jnp.int32(0),
+            "tier": jnp.int32(0),
         }
 
         # ---- band raster -> G-buffers --------------------------------------
@@ -587,9 +571,14 @@ def render_frame_sharded(
                 num_classes=num_classes,
                 mid_tile_cap=config.pallas_mid_tile_cap,
                 max_mid_tris=config.pallas_max_mid_tris,
+                tiers=config.pallas_tiers,
             )
             diag["big"] = bins.big_tri_count.astype(jnp.int32)
             diag["mid"] = bins.mid_tri_count
+            # worst demotion-tier rung overflow (> 0 = dropped draws),
+            # as render_frame tracks it
+            for demand, slots in zip(bins.tier_demands, bins.tier_slots):
+                diag["tier"] = jnp.maximum(diag["tier"], demand - slots)
             records = pack_gbuf_payload(
                 setup, dl.tri_vtx, dl.tri_material, tri_scale,
                 world_pos, world_nrm, uvs, tri_class,
@@ -611,6 +600,8 @@ def render_frame_sharded(
                     interpret=config.pallas_interpret,
                     n_tiles_global=n_tiles_global,
                     pos_derivs=pos_derivs,
+                    name=("raster_opaque", "raster_transmission",
+                          "raster_clip_peel", "raster_clip_peel")[pass_class],
                 )
 
             def band_untile(ch):
@@ -788,10 +779,9 @@ def render_frame_sharded(
                     sun_shadow_factor=sun_f_t.reshape(-1),
                     light_shadow_factors=light_f_t.reshape(-1, lights.num),
                 )
-            bk_py, bk_px0 = band_block_meta()
             hdr_t = shade_transmission_flat(
                 scene, flatten_gbuffer(g_t), ctx_t, None, px, py + row0_px,
-                fb_sampler=fb_sampler, block_py=bk_py, block_px0=bk_px0,
+                fb_sampler=fb_sampler,
             ).reshape(band_h, w, 3)
             hdr_band = jnp.where(g_t.valid[..., None], hdr_t, hdr_band)
 
@@ -804,6 +794,7 @@ def render_frame_sharded(
             jax.lax.pmax(diag["mid"], "band"),
             jax.lax.psum(diag["clip_unresolved"], "band"),
             jax.lax.pmax(diag["bin"], "band"),
+            jax.lax.pmax(diag["tier"], "band"),
         ])
         return ldr_band, diag_vec
 
@@ -821,7 +812,8 @@ def render_frame_sharded(
             bin_capacity=0 if use_kernel else config.max_tris_per_tile,
             big_tri_count=diag_vec[0],
             big_tri_capacity=(
-                config.pallas_max_big_tris if use_kernel else config.max_big_tris
+                config.pallas_tiers[-1][1] if use_kernel
+                else config.max_big_tris
             ),
             opaque_blocks=jnp.int32(0),
             opaque_block_capacity=0,
@@ -830,6 +822,7 @@ def render_frame_sharded(
             clip_unresolved=diag_vec[2],
             mid_tri_count=diag_vec[1],
             mid_tri_capacity=config.pallas_max_mid_tris if use_kernel else 0,
+            tier_overflow=diag_vec[4],
         )
         return ldr_padded[:h], diags
     return ldr_padded[:h]

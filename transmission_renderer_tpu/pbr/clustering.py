@@ -6,8 +6,8 @@ construction (``write_cluster_data``, shader/src/lib.rs:519-594) and the
 cluster/light intersection tests (shared-structs/src/lib.rs:285-320) as
 dense JAX ops. The reference's atomic-append cluster lists
 (shader/src/lib.rs:596-645) become a sort-based top-K selection with
-identical semantics, including the 128-light clamp — TPUs have no global
-atomics (SURVEY.md section 2.6).
+identical semantics, including the 128-light clamp — no atomics needed
+(SURVEY.md section 2.6).
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """checkify-instrumented frame: the debug-mode sanitizer (SURVEY 5.2).
 
 The reference runs under the Vulkan validation layer at all times
-(src/main.rs:130-132) — its de-facto race/OOB detector. On TPU the race
+(src/main.rs:130-132) — its de-facto race/OOB detector. Here the race
 class of bugs is gone by construction (XLA SSA dataflow, no atomics), so
 the remaining sanitizer value is **out-of-bounds indexing**: this renderer
 is gather-heavy (texture atlas, mip pyramid, cluster tables, material

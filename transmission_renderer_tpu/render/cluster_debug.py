@@ -4,7 +4,7 @@ line-list draw over every cluster's view-space AABB; its call site is
 present but commented out at src/main.rs:1948-1967, toggled alongside the
 false-colour view).
 
-TPU rendition: no line rasteriser exists, so each AABB edge is sampled at
+Rendition: no line rasteriser exists, so each AABB edge is sampled at
 ``samples`` points, projected with the (reversed-Z) perspective, and
 point-scattered over the tonemapped image. Debug-only path: runs as its
 own tiny jit outside the frame function.

@@ -1,6 +1,6 @@
 """render_frame — the whole frame as one jittable function.
 
-The TPU equivalent of ``record()`` (src/main.rs:1551-2263). Pass order
+The equivalent of ``record()`` (src/main.rs:1551-2263). Pass order
 mirrors the reference frame graph:
 
   1. vertex transform + frustum culling        (compute prefix, :1651-1850)
@@ -81,7 +81,10 @@ from transmission_renderer_tpu.scene.types import (
     similarity_apply,
 )
 from transmission_renderer_tpu.utils.ggx_lut import default_ggx_lut
-from transmission_renderer_tpu.utils.platform import f32_matmuls
+from transmission_renderer_tpu.utils.platform import (
+    f32_matmuls,
+    use_raster_kernel,
+)
 from transmission_renderer_tpu.utils.profiling import pass_scope
 
 
@@ -103,8 +106,7 @@ class DrawList(NamedTuple):
 
 def build_draw_list(scene: Scene) -> DrawList:
     """NumPy expansion from a frozen Scene. NOTE: reads device arrays back
-    to the host — on remote-TPU transports each readback is slow; prefer
-    ``SceneBuilder.finish_bundle()`` which stays host-side."""
+    to the host; ``SceneBuilder.finish_bundle()`` stays host-side."""
     return build_draw_list_from_numpy(
         np.asarray(scene.inst_primitive_id),
         np.asarray(scene.inst_material_id),
@@ -192,8 +194,7 @@ class SceneFlags(NamedTuple):
     # present, the transmission pass's framebuffer-mip fetch lod
     # (log2(fb_width) * this, glam-pbr/src/lib.rs:334-335) is statically
     # bounded, so the pyramid fetch touches only the few needed levels'
-    # small quad tables (TPU gathers from small tables are ~free — see
-    # ops/mipchain.py).
+    # small quad tables (ops/mipchain.py).
     transmission_ior_roughness: tuple | None = None
     # Groups of sampled texture slots that, for EVERY material, reference
     # one atlas bundle image (layers packed per texture_ref): such groups
@@ -560,11 +561,10 @@ def _clip_alpha_ok_tiles_inner(scene: Scene, ch: dict) -> jnp.ndarray:
     m = scene.materials
     valid = ch["tri"] >= 0
     safe = jnp.maximum(ch["material"], 0)
-    # ONE fused one-hot MXU fetch for every per-material column the test
-    # reads (tid, alpha factor, cutoff, the diffuse image's meta row) —
-    # the per-pixel small-table gathers this replaces cost ~2.3 ns/idx
-    # EACH, and the test runs on several million clip-tile lanes per
-    # frame. Offsets split into 12-bit halves for f32 exactness
+    # ONE fused one-hot matmul fetch for every per-material column the
+    # test reads (tid, alpha factor, cutoff, the diffuse image's meta
+    # row) instead of one small-table gather each. Offsets split into
+    # 12-bit halves for f32 exactness
     # (render/shading.py::build_material_matrix does the same).
     img = jnp.maximum(m.tex_diffuse, 0) & IMAGE_MASK
     meta_i = scene.atlas_meta[img][:, :META_COLS].astype(jnp.int32)
@@ -688,6 +688,7 @@ def _rasterize_class_sparse(
     max_depth_tiles: jnp.ndarray | None = None,
     pos_derivs: bool = True,
     uv_channels: bool = True,
+    name: str = "raster_tiles",
 ):
     """Raster one draw class over ONLY the tiles holding records of that
     class. Exact while the active-tile count fits ``cap`` (overflowing
@@ -716,7 +717,7 @@ def _rasterize_class_sparse(
             max_depth_tiles[safe_ids] if max_depth_tiles is not None else None
         ),
         pass_class=pass_class, interpret=config.pallas_interpret,
-        pos_derivs=pos_derivs, uv_channels=uv_channels,
+        pos_derivs=pos_derivs, uv_channels=uv_channels, name=name,
     )
     ch = _scatter_tile_channels(
         _default_gbuf_channels(n_tiles, init_tiles, pos_derivs, uv_channels),
@@ -773,6 +774,7 @@ def _rasterize_clip_peeled(
         ch, clip_tiles, (ids0, _safe0, sub0) = _rasterize_class_sparse(
             payload, bins.tile_start, big_count, pass_class, cap_c,
             init_tiles, config, w, h, pos_derivs=pos_derivs,
+            name="raster_clip_peel",
         )
         ok_sub = _clip_alpha_ok_tiles(scene, sub0)
         ones = jnp.ones((n_tiles + 1, TILE_H, TILE_W), bool)
@@ -782,6 +784,7 @@ def _rasterize_clip_peeled(
             payload, all_ids, bins.tile_start, big_count, w, h,
             init_depth_tiles=init_tiles, pass_class=pass_class,
             interpret=config.pallas_interpret, pos_derivs=pos_derivs,
+            name="raster_clip_peel",
         )
         # ONE dense alpha test; later rounds only change the re-raced tile
         # subset, so the test (an atlas tap per pixel — the expensive part)
@@ -857,6 +860,7 @@ def _rasterize_clip_peeled(
                 init_depth_tiles=init_tiles[safe_ids],
                 max_depth_tiles=maxd_sub, pass_class=pass_class,
                 interpret=config.pallas_interpret, pos_derivs=pos_derivs,
+                name=f"clip_round_{rnd}",
             )
             sub = {
                 n: jnp.where(failed_sel, new[n], sub_prev[n])
@@ -1015,16 +1019,8 @@ def render_frame(
         # (src/acceleration_structures.rs:192-267, src/main.rs:1331-1351)
         bvh = refit_bvh(bvh, dl.tri_vtx, world_pos)
 
-    # Rasteriser backend selection (see RenderConfig.use_pallas_raster).
-    # Alpha-clip buckets need in-raster texture fetches the Pallas kernel
-    # doesn't do; they rasterise through the JAX path and depth-race-merge
-    # with the Pallas output (draw order preserved: clip buckets draw
-    # after their opaque siblings, matching src/main.rs:1900-1944).
-    use_pallas = config.use_pallas_raster
-    if use_pallas is None:
-        import jax
-
-        use_pallas = jax.default_backend() != "cpu" and (tw, th) == (128, 8)
+    # Rasteriser backend selection (see RenderConfig.use_pallas_raster)
+    use_pallas = use_raster_kernel(config)
     mask_o = bucket_triangle_masks(
         dl.tri_inst, dl.tri_bucket, visible, (BUCKET_OPAQUE, BUCKET_ALPHA_CLIP)
     )
@@ -1146,7 +1142,7 @@ def render_frame(
             g_o = rasterize_gbuffer_pallas(
                 records, bins_all, w, h, pass_class=0, payload=gpayload,
                 interpret=config.pallas_interpret, pos_derivs=pos_derivs_o,
-                uv_channels=uv_o,
+                uv_channels=uv_o, name="raster_opaque",
             )
         if flags.has_alpha_clip:
             with pass_scope("raster_clip_peel"):
@@ -1158,12 +1154,16 @@ def render_frame(
             clip_tiles = jnp.maximum(clip_tiles, ct)
     else:
         # ---- 2. opaque + alpha-clip raster (pure-JAX path) ------------------
-        setup_o = setup_triangles(clip, dl.tri_vtx, mask_o, w, h, tw, th)
-        vis_o = jax_raster_pass(setup_o)
-        g_o = interpolate_gbuffer(
-            vis_o, setup_o, dl.tri_vtx, dl.tri_material, tri_scale,
-            world_pos, world_nrm, uvs, w, h,
-        )
+        # (setup, binning and interpolation included: the pass table
+        # compares this scope with the kernel path's binning + payload +
+        # raster scopes)
+        with pass_scope("raster_opaque"):
+            setup_o = setup_triangles(clip, dl.tri_vtx, mask_o, w, h, tw, th)
+            vis_o = jax_raster_pass(setup_o)
+            g_o = interpolate_gbuffer(
+                vis_o, setup_o, dl.tri_vtx, dl.tri_material, tri_scale,
+                world_pos, world_nrm, uvs, w, h,
+            )
 
     # ---- 3. clustered lighting -------------------------------------------
     # coefficients + cluster AABBs are projection-static: cached per
@@ -1212,10 +1212,6 @@ def render_frame(
         ggx_lut_quads=lut_quads,
         fused_trilinear=flags.atlas_pot and _tx.ATLAS_FUSED,
         bf16_lights=config.bf16_light_math,
-        pallas_shade=(
-            use_pallas if config.pallas_shade is None else config.pallas_shade
-        ),
-        pallas_interpret=config.pallas_interpret,
     )
 
     # ---- 4. opaque shade ---------------------------------------------------
@@ -1272,7 +1268,6 @@ def render_frame(
                     # (slot 2): the shade's N·L uses the perturbed normal
                     nol_gate=config.nol_shadow_gate
                     and not flags.tex_slots[2],
-                    packet_swizzle="2d",
                 )
         ctx = ctx._replace(sun_shadow_factor=sun_f, light_shadow_factors=light_f)
 
@@ -1302,20 +1297,10 @@ def render_frame(
                     )
                 )
             px, py = pixel_coords(wk_o)
-            bk_py = bk_px0 = None
-            if w % 128 == 0:
-                # worklist blocks are single-row segments: kernel-eligible
-                bpr = w // 128
-                bid = jnp.minimum(wk_o.block_ids, nb - 1)
-                bk_py = bid // bpr
-                bk_px0 = (bid % bpr) * 128
             hdr_flat = shade_opaque_flat(scene, g_of, ctx_f, px, py,
-                                         block_py=bk_py, block_px0=bk_px0,
                                          return_planes=True)
             # HDR stays PLANAR ((r, g, b) [H, W] planes) through the
-            # pyramid/merge/tonemap back half: interleaved [H, W, 3]
-            # relayouts (lane-padded trailing axes) measured ~9 ms of
-            # the dragon frame (see ops/mipchain.py::_downsample2x_plane_mxu)
+            # pyramid/merge/tonemap back half
             hdr_planes = tuple(
                 block_scatter(wk_o, p, jnp.zeros((h, w), jnp.float32))
                 for p in hdr_flat
@@ -1394,6 +1379,7 @@ def render_frame(
                         init_depth_tiles=init_tiles[safe_t], pass_class=1,
                         interpret=config.pallas_interpret,
                         pos_derivs=pos_derivs_t, uv_channels=uv_t,
+                        name="raster_transmission",
                     )
                 g_tf = _jax.tree_util.tree_map(
                     lambda a: a.reshape(
@@ -1423,7 +1409,7 @@ def render_frame(
                     ch_t, transmission_tiles, _ = _rasterize_class_sparse(
                         gpayload, bins_all.tile_start, big_cnt, 1, cap_rt,
                         init_tiles, config, w, h, pos_derivs=pos_derivs_t,
-                        uv_channels=uv_t,
+                        uv_channels=uv_t, name="raster_transmission",
                     )
                 g_t = gbuffer_from_channels({
                     name: untile_image(a, tiles_x, tiles_y, TILE_W, TILE_H,
@@ -1435,6 +1421,7 @@ def render_frame(
                     records, bins_all, w, h, pass_class=1, payload=gpayload,
                     init_depth=g_o.depth, interpret=config.pallas_interpret,
                     pos_derivs=pos_derivs_t, uv_channels=uv_t,
+                    name="raster_transmission",
                 )
             if flags.has_alpha_clip:
                 g_t, miss, ct, clip_rounds_t = _rasterize_clip_peeled(
@@ -1455,12 +1442,15 @@ def render_frame(
                 else:
                     clip_rounds = clip_rounds_t
         else:
-            setup_t = setup_triangles(clip, dl.tri_vtx, mask_t, w, h, tw, th)
-            vis_t = jax_raster_pass(setup_t, init_depth=vis_o.depth)
-            g_t = interpolate_gbuffer(
-                vis_t, setup_t, dl.tri_vtx, dl.tri_material, tri_scale,
-                world_pos, world_nrm, uvs, w, h,
-            )
+            with pass_scope("raster_transmission"):
+                setup_t = setup_triangles(
+                    clip, dl.tri_vtx, mask_t, w, h, tw, th
+                )
+                vis_t = jax_raster_pass(setup_t, init_depth=vis_o.depth)
+                g_t = interpolate_gbuffer(
+                    vis_t, setup_t, dl.tri_vtx, dl.tri_material, tri_scale,
+                    world_pos, world_nrm, uvs, w, h,
+                )
         ctx_t = ctx._replace(
             tex_slots=flags.tex_slots_transmission,
             mat_matrix=build_material_matrix(
@@ -1491,29 +1481,18 @@ def render_frame(
                 px_t, py_t = pixel_coords(wk_t)
                 if use_rt:
                     with pass_scope("shadow_rays_transmission"):
-                        # the fused-sparse worklist is tile-grouped
-                        # (every 1024 lanes = one 8x128 raster tile) —
-                        # regroup into 8x16 packets for the walk
                         sun_f_t, light_f_t = shadow_factors(
                             bvh, dl.tri_vtx, world_pos, g_tf,
                             params.sun_dir, lights,
                             light_active=_light_mask(ctx_t, g_tf, px_t, py_t),
-                            packet_swizzle="tiles",
                         )
                     ctx_tf = ctx_tf._replace(
                         sun_shadow_factor=sun_f_t,
                         light_shadow_factors=light_f_t,
                     )
-                bk_py_t = bk_px0_t = None
-                if w % 128 == 0:
-                    bpr_t = w // 128
-                    bid_t = jnp.minimum(wk_t.block_ids, nb - 1)
-                    bk_py_t = bid_t // bpr_t
-                    bk_px0_t = (bid_t % bpr_t) * 128
                 hdr_t_flat = shade_transmission_flat(
                     scene, g_tf, ctx_tf, pyramid, px_t, py_t,
                     pyramid_level_set=level_set,
-                    block_py=bk_py_t, block_px0=bk_px0_t,
                 )
                 hdr_planes = tuple(
                     block_scatter(
@@ -1548,16 +1527,9 @@ def render_frame(
                         sun_shadow_factor=sun_f_t,
                         light_shadow_factors=light_f_t,
                     )
-                bk_py_t = bk_px0_t = None
-                if w % 128 == 0:
-                    bpr_t = w // 128
-                    bid_t = jnp.minimum(wk_t.block_ids, nb - 1)
-                    bk_py_t = bid_t // bpr_t
-                    bk_px0_t = (bid_t % bpr_t) * 128
                 hdr_t_flat = shade_transmission_flat(
                     scene, g_tf, ctx_tf, pyramid, px_t, py_t,
                     pyramid_level_set=level_set,
-                    block_py=bk_py_t, block_px0=bk_px0_t,
                 )
                 # transmission replaces covered pixels (the reference's
                 # blend-disabled transmission pipeline)
@@ -1585,7 +1557,6 @@ def render_frame(
                             bvh, dl.tri_vtx, world_pos, g_t,
                             params.sun_dir, lights,
                             light_active=_light_mask(ctx_t, g_t, px_td, py_td),
-                            packet_swizzle="2d",
                         )
                     ctx_t = ctx_t._replace(
                         sun_shadow_factor=sun_f_t,

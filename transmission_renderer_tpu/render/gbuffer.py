@@ -9,9 +9,7 @@ and position derivatives — the ddx/ddy the fragment shaders rely on
 homogeneous edge equations, which is exact (quad-difference hardware
 derivatives are an approximation of these).
 
-Performance note: TPU gathers cost by index count, not element width
-(~13 ms per 2M-index gather on v5e), so per-pixel fetches are fused into
-two wide gathers — one [VV, 8] vertex-attribute table (pos+nrm+uv) at the
+Per-pixel fetches are fused into two wide gathers — one [VV, 8] vertex-attribute table (pos+nrm+uv) at the
 3 corner indices, and one [T, 11] per-triangle table (adjugate rows +
 material id + scale) — instead of ~10 narrow ones.
 """

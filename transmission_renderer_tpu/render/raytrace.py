@@ -20,54 +20,6 @@ from transmission_renderer_tpu.scene.types import Scene
 from transmission_renderer_tpu.utils.platform import f32_matmuls
 
 
-def _packet_swizzle_fns(shape: tuple, mode: str | None):
-    """(swz, unswz) pixel-regrouping for the packet BVH walk, or
-    identities when the layout doesn't support the mode.
-
-    The packet kernel walks 128-ray packets whose traversal cost is the
-    UNION of its rays' node paths, so packet WORLD-SPACE locality sets
-    the pass's speed. Flat pixel order makes a packet one 128x1 image
-    row; regrouping each 8x128 raster tile into 8 packets of 8x16
-    pixels measured the dragon's opaque shadow population 276 -> 93 ms
-    on v5e (3x) — and it is pure reshape/transpose data movement
-    (< 1 ms), not a per-frame sort. Bit-identical: any-hit is a
-    per-ray existence predicate, so packet composition cannot change a
-    ray's result (extra union-visited leaves only ever test TRUE
-    intersections of that ray).
-
-    ``mode``: "2d" for [H, W(, C)] arrays (needs H % 8 == W % 16 == 0);
-    "tiles" for flat [M(, C)] arrays whose every 1024 consecutive lanes
-    are one 8x128 raster tile (render_frame's fused-sparse worklists);
-    None disables."""
-    if mode == "2d" and len(shape) >= 2 and shape[0] % 8 == 0 and (
-        shape[1] % 16 == 0
-    ):
-        h, w = shape[0], shape[1]
-
-        def swz(a):
-            a4 = a.reshape(h // 8, 8, w // 16, 16, *a.shape[2:])
-            return jnp.moveaxis(a4, 1, 2).reshape(-1, *a.shape[2:])
-
-        def unswz(a):
-            a4 = a.reshape(h // 8, w // 16, 8, 16, *a.shape[2:])
-            return jnp.moveaxis(a4, 2, 1).reshape(h, w, *a.shape[2:])
-
-        return swz, unswz
-    if mode == "tiles" and shape[0] % 1024 == 0:
-        m = shape[0]
-
-        def swz(a):
-            a4 = a.reshape(m // 1024, 8, 8, 16, *a.shape[1:])
-            return jnp.moveaxis(a4, 1, 2).reshape(m, *a.shape[1:])
-
-        def unswz(a):
-            a4 = a.reshape(m // 1024, 8, 8, 16, *a.shape[1:])
-            return jnp.moveaxis(a4, 1, 2).reshape(m, *a.shape[1:])
-
-        return swz, unswz
-    return (lambda a: a), (lambda a: a)
-
-
 def shadow_factors(
     bvh: BVH,
     tri_vertices: jnp.ndarray,  # [TT, 3] into world positions
@@ -77,7 +29,6 @@ def shadow_factors(
     lights: Lights,
     light_active: jnp.ndarray | None = None,  # [*g.valid.shape, L] bool
     nol_gate: bool = False,
-    packet_swizzle: str | None = None,
 ):
     """(sun_factor [H, W], light_factors [H, W, L]) — 1.0 lit, 0.0 shadowed.
 
@@ -108,13 +59,12 @@ def shadow_factors(
     # instead of L + 1 and lets every chunk mix ray kinds. Invalid
     # pixels get t_max = 0: their (t_min, 0) interval fails every AABB
     # test, so they pop the root and idle while real lanes walk.
-    swz, unswz = _packet_swizzle_fns(g.valid.shape, packet_swizzle)
-    origins = swz(g.position).reshape(-1, 3)
+    origins = g.position.reshape(-1, 3)
     n = origins.shape[0]
-    valid = swz(g.valid).reshape(-1)
-    nrm = swz(g.normal).reshape(-1, 3) if nol_gate else None
+    valid = g.valid.reshape(-1)
+    nrm = g.normal.reshape(-1, 3) if nol_gate else None
     if light_active is not None:
-        light_active = swz(light_active).reshape(-1, lights.num)
+        light_active = light_active.reshape(-1, lights.num)
     sun_live = valid
     if nol_gate:
         sun_live = sun_live & (jnp.sum(nrm * sun_dir, axis=-1) > 0.0)
@@ -139,12 +89,8 @@ def shadow_factors(
         jnp.broadcast_to(origins, (1 + lights.num, n, 3)),
         jnp.stack(dirs), t_max=jnp.stack(tmaxs), any_hit=True,
     )
-    shape = g.valid.shape
-    # un-swizzle each kind's hits back to the caller's pixel layout
-    hit_k = [
-        unswz(hit[k]).reshape(shape) for k in range(1 + lights.num)
-    ]
-    factors = jnp.where(g.valid[None] & jnp.stack(hit_k), 0.0, 1.0)
+    hit = hit.reshape((1 + lights.num,) + g.valid.shape)
+    factors = jnp.where(g.valid[None] & hit, 0.0, 1.0)
     sun_factor = factors[0]
     light_factors = jnp.moveaxis(factors[1:], 0, -1)
     return sun_factor, light_factors

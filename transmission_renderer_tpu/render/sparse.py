@@ -2,19 +2,19 @@
 
 The reference pays fragment cost only for covered pixels (raster hardware
 invokes fragment shaders per covered fragment; the dual depth pre-pass
-bounds it to <= 2 screens, readme.md:74). A dense TPU shading pass instead
+bounds it to <= 2 screens, readme.md:74). A dense shading pass instead
 pays every gather for every pixel of the frame. This module recovers the
-reference's "shade only what's covered" economics the TPU way:
+reference's "shade only what's covered" economics with worklists:
 
   * the framebuffer is split into flat blocks of 128 pixels,
   * a (cheap: ~16k-element) cumsum compacts the ids of blocks containing
     any active pixel into a static-size worklist,
   * G-buffer rows are gathered per *block* (~16k wide-row indices, vs 2M
-    per-pixel indices — TPU gathers cost by index count),
+    per-pixel indices),
   * shading runs on the [cap_blocks * 128] flat worklist,
   * results scatter back per block.
 
-Total overhead is ~1-2 ms; every per-pixel gather in the pass (material
+Every per-pixel gather in the pass (material
 rows, texture taps, pyramid taps, cluster rows) shrinks by the coverage
 ratio. The worklist capacity is static (like the reference's DrawBuffer
 sizing, src/main.rs:2423-2476); overflow leaves blocks unshaded and is
@@ -27,7 +27,7 @@ from typing import NamedTuple
 
 import jax.numpy as jnp
 
-BLOCK = 128  # flat pixels per work block (one VPU lane row)
+BLOCK = 128  # flat pixels per work block
 
 
 class BlockWork(NamedTuple):

@@ -170,8 +170,7 @@ class SceneBuilder:
     def finish_bundle(self):
         """(Scene, DrawList, SceneFlags) with the draw list computed host-
         side. Always prefer this over finish() + build_draw_list(scene):
-        the latter reads device arrays back to the host, which is very slow
-        over remote-TPU transports."""
+        the latter reads device arrays back to the host."""
         from transmission_renderer_tpu.render.frame import (
             TEX_SLOT_NAMES,
             build_draw_list_from_numpy,
@@ -189,8 +188,7 @@ class SceneBuilder:
         )
         mats = self.materials or [default_material()]
         # SAME derivation as render.frame.scene_flags, fed from the host
-        # staging lists (finish_bundle must not read back device arrays —
-        # slow over remote-TPU transports)
+        # staging lists (finish_bundle must not read back device arrays)
         flags = scene_flags_from_arrays(
             np.array(self.prim_bucket, np.int32),
             np.array(self.inst_primitive, np.int32),

@@ -165,7 +165,13 @@ class GltfDocument:
         """Decode image -> RGBA8 (RGB expanded, src/model_loading.rs:36-53)."""
         if index in self._image_cache:
             return self._image_cache[index]
-        from PIL import Image
+        try:
+            from PIL import Image
+        except ImportError as e:
+            raise ImportError(
+                "decoding glTF textures needs Pillow (pip install pillow); "
+                "it is the only part of the renderer that does"
+            ) from e
 
         img_def = self.doc["images"][index]
         if "uri" in img_def:

@@ -1,13 +1,11 @@
-"""Texture atlas: the TPU replacement for bindless sampled images.
+"""Texture atlas: the replacement for bindless sampled images.
 
 The reference binds up to 193 images as a partially-bound descriptor array
 (src/main.rs:59, src/descriptor_sets.rs:30-80) and lets sampler hardware do
-bilinear/trilinear filtering, wrap modes, and sRGB decode. TPUs have no
-sampler hardware (SURVEY.md §2.5), so sampling is gather-based — and TPU
-gather cost scales with index count and with the table's ROW COUNT,
-nearly independent of row width (measured v5e @2M idx, 16.8 MB table:
-350k-row [12]f32 ~10 ms vs 87.5k-row [48]f32 ~1 ms). The atlas layout is
-therefore built around minimising gathers per tap AND rows per table:
+bilinear/trilinear filtering, wrap modes, and sRGB decode. Here sampling
+is gather-based (SURVEY.md §2.5), and the atlas layout is built around
+minimising gathers per tap AND rows per table (whether the row grouping
+pays on the GPU is not measured yet — ROADMAP D2):
 
 **Quad-block layout.** Each mip level is stored as 2x2 texel blocks in
 FOUR phase-shifted copies (block origins at (even,even), (even,odd),
@@ -47,30 +45,22 @@ MAX_MIPS = 13  # up to 4096x4096
 META_LAYERS_COL = 4 + MAX_MIPS
 META_COLS = 5 + MAX_MIPS
 
-# Quad-blocks packed per physical atlas row: TPU gather cost scales with
-# table ROW COUNT, nearly independent of row width (measured on v5e —
-# see ops/texture.py), so grouping consecutive blocks per row cuts the
-# dominant material-tap gather cost. Logical quad indices are unchanged;
+# Quad-blocks packed per physical atlas row: grouping consecutive blocks
+# per row cuts the table's row count (the layout's cost model; ROADMAP
+# D2). Logical quad indices are unchanged;
 # samplers fetch row qidx >> shift and select the sub-block
 # qidx & (G - 1) in registers. The GATHERED rows materialise in HBM (the
 # optimization_barrier that keeps XLA from re-splitting the wide gather),
 # so the group must SHRINK as blocks widen: the atlas array is
 # [R, G, BLOCK_TEXELS*4L] with G chosen per layer count by
 # quad_group_for_layers (a 5-layer trirow bundle at G=4 would
-# materialise 8+ GB per 2M-pixel tap — observed HBM OOM on v5e).
+# materialise 8+ GB per 2M-pixel tap).
 QUAD_GROUP = 4  # single-layer default (and the LUT pools' fixed group)
 QUAD_GROUP_SHIFT = 2
 
 
 # Atlas texel storage dtype. Half-width texels halve every gathered
-# byte — and the BYTES of the barrier-materialised row array dominate
-# tap cost on v5e (measured in-frame: 416 B rows cost 127-138 ms dragon
-# frames across dtypes/groups; 208 B rows cost 108-113 ms). bfloat16,
-# NOT float16: a controlled dtype x group A/B on the real dragon frame
-# (repeated, uncontended) measured bf16-G2 107.9 ms vs f16-G4 127.2 /
-# bf16-G4 130.9 / f32-G2 138.0 / f32-G1 112.8 — f16 gathers carry a
-# conversion penalty on this TPU that bf16 (a truncated f32) does not.
-# Precision: decoded u8 sRGB values round to bf16 with relative error
+# byte. Precision: decoded u8 sRGB values round to bf16 with relative error
 # <= 2^-8 ~= 4e-3 of value, below the SOURCE texels' own 8-bit
 # quantisation step (1/255 absolute) and inside the 1e-3 frame-RMSE
 # budget (docs/FIDELITY.md; goldens re-verified on this dtype).
@@ -81,18 +71,11 @@ if ATLAS_DTYPE is None:  # numpy bfloat16 rides ml_dtypes
     ATLAS_DTYPE = np.dtype(ml_dtypes.bfloat16)
 
 
-# Target flat-row width in ELEMENTS. TPU tiles the minor axis to 128
-# elements (bf16 T(8,128)(2,1), f32 T(8,128)): a [R, G, W] atlas with
-# W < 128 is PADDED on device — measured via compiled parameter layouts:
-# bf16 [R, 4, 16] materialises 8x its logical bytes (every gathered row
-# pays 1 KB for 128 B of texels), which is exactly the compact-G4
-# regression BENCH'd at 163 ms vs 108. Flat [R, 128] rows pad ZERO.
+# Target flat-row width in ELEMENTS of the [R, W] atlas rows.
 ATLAS_ROW_ELEMS = int(
     os.environ.get("TRTPU_ATLAS_ROW_ELEMS", "128").replace("auto", "0")
 )
-# ("auto" parses to 0 and is treated as the 128-element default: the
-# row-widening sweep measured strictly worse on pad-free tables —
-# docs/PERFORMANCE.md "row widening".)
+# ("auto" parses to 0 and is treated as the 128-element default.)
 
 
 WRAP_REPEAT = 0
@@ -167,12 +150,8 @@ def quad_block_counts(width: int, height: int) -> tuple[int, int]:
 #   compact (4): just the bilinear footprint -> trilinear is the classic
 #     2-gather two-level blend, but rows are 3.25x narrower AND (at the
 #     208 B row target) the table has half the rows.
-# Measured in-frame on v5e (dragon 1080p, bf16): compact flat G8
-# (43.7k x 128-element rows, zero device-tile padding) beats the fused
-# layout's G2 (175k rows) — the fused 13-texel blocks double the row
-# count and pad on device, which costs more than the saved second
-# gather (gathers cost by ROW COUNT; docs/PERFORMANCE.md).
-# TRTPU_ATLAS_FUSED=1 re-enables the fused layout for A/Bs.
+# The compact layout is the default; TRTPU_ATLAS_FUSED=1 selects the
+# fused one (ROADMAP D4: measure it on the GPU or remove it).
 ATLAS_FUSED = os.environ.get("TRTPU_ATLAS_FUSED", "0") == "1"
 BLOCK_TEXELS = 13 if ATLAS_FUSED else 4
 

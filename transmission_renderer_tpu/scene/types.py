@@ -192,7 +192,7 @@ def pack_materials(rows: list[dict]) -> MaterialsSoA:
 # --------------------------------------------------------------------------
 
 class Scene(NamedTuple):
-    """Frozen scene arrays — the TPU equivalent of ModelBuffers + descriptor
+    """Frozen scene arrays — the equivalent of ModelBuffers + descriptor
     tables (src/main.rs:2495-2588).
 
     Geometry is one shared SoA pool with rebased indices

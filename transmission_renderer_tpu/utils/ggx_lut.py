@@ -101,24 +101,17 @@ def load_ggx_lut_png(path: str) -> np.ndarray:
     [S, S, 2] float32, rows exactly as uploaded (row 0 = v 0). The
     reference uploads it R8G8B8A8_UNORM (linear, NOT sRGB) and the shader
     reads .xy, so decode is just /255."""
-    from PIL import Image
+    from transmission_renderer_tpu.utils.image_io import load_png
 
-    img = np.asarray(Image.open(path).convert("RGBA"), np.uint8)
-    return (img[..., :2].astype(np.float32)) / 255.0
-
-
-# Well-known mount point of the reference checkout in the build container;
-# used only as a fallback when TRTPU_GGX_LUT is unset.
-_REFERENCE_LUT_PATHS = ("/root/reference/ggx_lut.png",)
+    return (load_png(path)[..., :2].astype(np.float32)) / 255.0
 
 
 def _box_downsample(lut: np.ndarray, size: int) -> np.ndarray:
     """Integer-factor box average of an [S, S, 2] LUT down to [size, size,
     2]. The split-sum table is smooth, so the bilinear-sampled error of a
     256^2 box reduction of the 1024^2 asset is ~1e-4 — below the asset's
-    own 8-bit quantisation step (1/255). Kept because the sampling cost is
-    table-size-bound on TPU (ops/texture.py): the 1024^2 quad table costs
-    ~9 ms per 1M fetches, the 256^2 one is ~free."""
+    own 8-bit quantisation step (1/255), and the smaller table keeps the
+    per-pixel LUT fetch in cache."""
     s = lut.shape[0]
     if size >= s:
         return lut
@@ -129,9 +122,9 @@ def _box_downsample(lut: np.ndarray, size: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=4)
 def default_ggx_lut(size: int | None = 256) -> np.ndarray:
-    """The LUT the renderer uses: the reference PNG when reachable (exact
-    parity with the reference's split-sum term), else a self-bake matched
-    to the asset's conventions. ``size`` (None = native) box-reduces the
+    """The LUT the renderer uses: the reference PNG named by TRTPU_GGX_LUT
+    when set (exact parity with the reference's split-sum term), else a
+    self-bake matched to the asset's conventions. ``size`` (None = native) box-reduces the
     table for fetch speed — see _box_downsample.
 
     QUIRK (preserved for parity): the reference's ggx_lut.png stores the
@@ -143,14 +136,13 @@ def default_ggx_lut(size: int | None = 256) -> np.ndarray:
     roughness-inverted specular deweight in ibl_volume_refraction; we
     reproduce that behaviour, so the fallback bake is flipped and
     quantised to UNORM8 to match the asset."""
-    candidates = [os.environ.get("TRTPU_GGX_LUT")] + list(_REFERENCE_LUT_PATHS)
-    for path in candidates:
-        if path and os.path.exists(path):
-            try:
-                lut = load_ggx_lut_png(path)
-                return _box_downsample(lut, size) if size else lut
-            except Exception:
-                pass
+    path = os.environ.get("TRTPU_GGX_LUT")
+    if path and os.path.exists(path):
+        try:
+            lut = load_ggx_lut_png(path)
+            return _box_downsample(lut, size) if size else lut
+        except Exception:
+            pass
     lut = compute_ggx_lut()[::-1].copy()  # textbook -> asset orientation
     lut = np.round(lut * 255.0).astype(np.float32) / np.float32(255.0)
     return _box_downsample(lut, size) if size else lut
